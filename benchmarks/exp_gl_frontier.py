@@ -1,23 +1,22 @@
-"""The GL quality/wall-clock frontier -> packaged serving recommendation.
+"""The GL quality frontier -> packaged serving recommendation.
 
-VERDICT r3 item 4: turn the raw momentum measurements (exp_gl_momentum.py,
-exp_longform_momentum.py) into "momentum-GL(k) ≡ plain GL(n) quality at
-m× less wall-clock" pairs for the two reference quality classes:
+Derive "momentum-GL(k) matches plain GL(n) quality" pairs for the two
+reference quality classes:
 
-  - GL-2  (the reference CLI default, /root/reference/mel/mel.go:39)
+  - GL-2  (the reference CLI default, reference mel/mel.go:39)
   - GL-64 (the BASELINE long-form class)
 
-Per-iteration cost is measured unchanged by momentum (RESULTS.md "GL
-momentum"), so wall-clock ratio == iteration ratio. Quality = scale-
-invariant spectral convergence (utils.metrics) on BOTH a tonal and a
-speech-like input at the flagship config (4096/1280). Quality numbers are
-hardware-independent — this runs on CPU float64 for determinism:
+Momentum adds one axpy per iteration, so the saving is close to the
+iteration ratio. Quality = scale-invariant spectral convergence
+(utils.metrics) on BOTH a tonal and a speech-like input at the flagship
+config (4096/1280). Quality numbers are hardware-independent — this runs
+on CPU float64 for determinism and takes no timing:
 
   python benchmarks/exp_gl_frontier.py
 
 The derived pairs are shipped in ops/griffinlim.py
 (GL_EQUAL_QUALITY_PAIRS / recommended_gl) and guarded by
-tests/test_fgla.py::test_equal_quality_pair_rederives.
+tests/test_fgla.py::test_equal_quality_pairs_rederive.
 """
 from __future__ import annotations
 

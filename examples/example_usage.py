@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Example usage of gomel_tpu (TPU-native equivalent of the reference's
-example_usage.py, /root/reference/example_usage.py).
+"""Example usage of gomel_tpu (the equivalent of the reference's
+example_usage.py).
 
 Demonstrates: buffer-level phase round trip, mel encode/decode with
 Griffin-Lim, file conversion, the reference-port compat layer, batched
@@ -40,15 +40,15 @@ def example_mel_roundtrip():
     wav = m.decode(logmel, seed=0)               # Griffin-Lim, explicit PRNG
     print("reconstructed:", wav.shape)
     # opt-in fast-GL (FGLA momentum): ~2-4x fewer iterations for equal
-    # convergence at the same per-iteration cost (RESULTS.md "GL momentum")
+    # convergence at about the same per-iteration cost (ops/griffinlim.py)
     wav_fast = m.decode(logmel, seed=0, momentum=0.99)
     print("fast-GL reconstructed:", wav_fast.shape)
 
 
-def example_files(tmpdir="/tmp/gomel_tpu_example"):
+def example_files(tmpdir=None):
     print("\n=== File conversion ===")
-    import os
-    os.makedirs(tmpdir, exist_ok=True)
+    import tempfile
+    tmpdir = tmpdir or tempfile.mkdtemp(prefix="gomel_example_")
     from gomel_tpu import Phase
     from gomel_tpu.io.audio import save_wav
     sr = 48000
@@ -59,8 +59,8 @@ def example_files(tmpdir="/tmp/gomel_tpu_example"):
                                             f"{tmpdir}/out.wav")
     print(f"wrote {tmpdir}/out.wav at {rate} Hz")
     # the fused fast path (the CLI default): raw int16 upload, on-device
-    # (de)quantization, int16 PCM readback — byte-near output, large file
-    # e2e wins (benchmarks/RESULTS.md r5)
+    # (de)quantization, int16 PCM readback — byte-near output, a quarter of
+    # the host<->device bytes
     fast = Phase(sample_rate=sr, device_quantize=True)
     fast.to_phase_wav(f"{tmpdir}/in.wav", f"{tmpdir}/p_fast.png")
     fast.to_wav_png(f"{tmpdir}/p_fast.png", f"{tmpdir}/out_fast.wav")
@@ -127,10 +127,10 @@ def example_longform():
     print(f"resumable GL decode: resumed-from-checkpoint == one-call: {same}")
 
 
-def example_serving(tmpdir="/tmp/gomel_tpu_example"):
+def example_serving(tmpdir=None):
     print("\n=== AOT serving artifact (jax.export) ===")
-    import os
-    os.makedirs(tmpdir, exist_ok=True)
+    import tempfile
+    tmpdir = tmpdir or tempfile.mkdtemp(prefix="gomel_example_")
     import jax.numpy as jnp
     from gomel_tpu import MelConfig, serving
     cfg = MelConfig.cli_default()

@@ -1,4 +1,4 @@
-"""gomel_tpu — TPU-native audio feature pipeline.
+"""gomel_tpu — accelerator-native audio feature pipeline.
 
 A from-scratch JAX/XLA framework with the capabilities of
 neurlang/gomel (reference surveyed in SURVEY.md): mel-spectrogram and

@@ -1,4 +1,4 @@
-"""Batch CLI: encode/decode whole directories on TPU with the data-parallel
+"""Batch CLI: encode/decode whole directories on the device with the data-parallel
 pipeline.
 
 New relative to the reference (whose CLIs process one file per invocation):
@@ -159,10 +159,8 @@ def batch_tomel(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--out-dir", default=None)
     _add_shard_flag(p)
     p.add_argument("--max-batch", type=int, default=4,
-                   help="rows per device call; small batches keep the "
-                        "frame intermediates VMEM-resident (RESULTS.md "
-                        "batch sweep) — raise only if bucketing overhead "
-                        "dominates")
+                   help="rows per device call (one compiled program per "
+                        "bucket shape and row count)")
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--num-mels", type=int, default=192)
     p.add_argument("--window", type=int, default=1280)
@@ -254,10 +252,8 @@ def batch_tophase(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--out-dir", default=None)
     _add_shard_flag(p)
     p.add_argument("--max-batch", type=int, default=4,
-                   help="rows per device call; small batches keep the "
-                        "frame intermediates VMEM-resident (RESULTS.md "
-                        "batch sweep) — raise only if bucketing overhead "
-                        "dominates")
+                   help="rows per device call (one compiled program per "
+                        "bucket shape and row count)")
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--window", type=int, default=1280)
     p.add_argument("--resolut", type=int, default=4096)
@@ -390,10 +386,8 @@ def batch_fromphase(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--out-dir", default=None)
     _add_shard_flag(p)
     p.add_argument("--max-batch", type=int, default=4,
-                   help="rows per device call; small batches keep the "
-                        "frame intermediates VMEM-resident (RESULTS.md "
-                        "batch sweep) — raise only if bucketing overhead "
-                        "dominates")
+                   help="rows per device call (one compiled program per "
+                        "bucket shape and row count)")
     p.add_argument("--window", type=int, default=1280)
     p.add_argument("--resolut", type=int, default=4096)
     p.add_argument("--volume-boost", type=float, default=0.0)
@@ -505,9 +499,9 @@ def batch_towav(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--griffin-lim-iterations", type=int, default=2)
     p.add_argument("--gl-momentum", type=float, default=0.0,
                    help="fast-GL acceleration (0=reference behavior; 0.99 "
-                        "converges like ~2-4x the iterations — measured: "
-                        "0.99 with 24 iterations beats plain 64 at 2.5x "
-                        "throughput, benchmarks/RESULTS.md)")
+                        "converges like ~2-4x the iterations: 0.99 with "
+                        "24 iterations beats plain 64, "
+                        "ops/griffinlim.recommended_gl)")
     p.add_argument("--volume-boost", type=float, default=0.0)
     _add_devq_flag(p)
     a = p.parse_args(argv)

@@ -27,7 +27,7 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("output", help="artifact path to write (.jaxexp)")
     p.add_argument("--batch", type=int, default=0,
                    help="pinned batch size; 0 = symbolic (any batch)")
-    p.add_argument("--platforms", default="tpu,cpu",
+    p.add_argument("--platforms", default="cuda,cpu",
                    help="comma-separated lowering platforms")
 
 
@@ -124,8 +124,7 @@ def export_tool(argv: Optional[Sequence[str]] = None) -> int:
 
     pr = sub.add_parser("phase-rt",
                         help="[B,T] audio -> [B,L] audio: ONE fused "
-                             "encode->decode program (+12% over two "
-                             "dispatches, RESULTS.md r5)")
+                             "encode->decode program")
     _common(pr)
     pr.add_argument("--seconds", type=float, required=True)
     pr.add_argument("--sample-rate", type=int, default=48000)

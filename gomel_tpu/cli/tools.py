@@ -9,7 +9,7 @@ error text shape):
   a [sample_rate] argument that main.go never parses — we keep main.go behavior
   and expose the rate as an optional flag instead).
 
-Each tool also grows TPU-era flags the reference lacks (--output, --seed,
+Each tool also grows flags the reference lacks (--output, --seed,
 config overrides) without changing the zero-flag default behavior.
 """
 from __future__ import annotations
@@ -46,13 +46,12 @@ def _mel_parser(prog: str, png_input: bool) -> argparse.ArgumentParser:
                        help="Griffin-Lim PRNG seed")
         p.add_argument("--gl-momentum", type=float, default=0.0,
                        help="fast-GL acceleration (0 = reference behavior). "
-                            "Measured equal-quality pairs "
+                            "Equal-quality pairs "
                             "(ops/griffinlim.py recommended_gl): "
                             "'--gl-momentum 0.99 --griffin-lim-iterations "
-                            "24' matches plain 64 iterations at 2.7x less "
-                            "wall-clock; momentum-8 matches plain-16 at "
-                            "2x; at the default 2 iterations momentum 0.99 "
-                            "is par-to-slightly-better at equal cost")
+                            "24' matches plain 64 iterations; momentum-8 "
+                            "matches plain-16; at the default 2 iterations "
+                            "momentum 0.99 is par-to-slightly-better")
     p.add_argument("--output", "-o", default=None, help="output path")
     p.add_argument("--num-mels", type=int, default=d.num_mels)
     p.add_argument("--window", type=int, default=d.window)
@@ -64,9 +63,9 @@ def _mel_parser(prog: str, png_input: bool) -> argparse.ArgumentParser:
     p.add_argument("--device-quantize", dest="device_quantize",
                    action="store_true", default=True,
                    help="fuse PNG (de)quantization into the device program "
-                        "(the default since the r5 evidence run: 8x less "
-                        "host<->device traffic on file paths, byte-near "
-                        "output — ops/quantize.py, docs/PARITY.md)")
+                        "(the default: 8x less host<->device traffic on "
+                        "file paths, byte-near output — ops/quantize.py, "
+                        "docs/PARITY.md)")
     p.add_argument("--host-quantize", dest="device_quantize",
                    action="store_false",
                    help="byte-exact host-side float64 PNG quantization "
@@ -130,10 +129,9 @@ def _phase_parser(prog: str, png_input: bool) -> argparse.ArgumentParser:
     p.add_argument("--device-quantize", dest="device_quantize",
                    action="store_true", default=True,
                    help="fuse PNG (de)quantization into the device program "
-                        "(the default since the r5 evidence run: +40-60%% "
-                        "single-stream file encode, 4x less host<->device "
-                        "traffic both directions, byte-near output — "
-                        "ops/quantize.py, docs/PARITY.md)")
+                        "(the default: 4x less host<->device traffic both "
+                        "directions, byte-near output — ops/quantize.py, "
+                        "docs/PARITY.md)")
     p.add_argument("--host-quantize", dest="device_quantize",
                    action="store_false",
                    help="byte-exact host-side float64 PNG quantization "
@@ -204,5 +202,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return tools[argv[0]](argv[1:])
 
 
+def _process_entry(tool):
+    """Console-script form of ``tool``: turn on the persistent compilation
+    cache for this process (utils/compile_cache.py), then run it. In-process
+    callers (library code, tests) call the tool functions directly."""
+    def run() -> int:
+        from ..utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
+        return tool()
+    return run
+
+
+cli = _process_entry(main)
+tomel_cli = _process_entry(tomel)
+towav_cli = _process_entry(towav)
+tophase_cli = _process_entry(tophase)
+fromphase_cli = _process_entry(fromphase)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

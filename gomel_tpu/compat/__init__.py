@@ -3,7 +3,7 @@
 ``gomel_tpu.compat.phase`` mirrors /root/reference/phase.py (the PyPI
 ``phase-spectrogram`` package, installed as the top-level module ``phase``)
 so existing users can switch imports without code changes while compute runs
-on TPU kernels. For code that does ``import phase`` / ``from phase import
+on the accelerator kernels. For code that does ``import phase`` / ``from phase import
 Phase`` verbatim, call :func:`install` once at startup.
 """
 import sys

@@ -29,7 +29,7 @@ from ..io import audio as _audio
 from ..io import float16meta as _f16
 from ..io import imagecodec as _imagecodec
 from ..ops import resample as _resample
-from ..pipelines.phase import Phase as _TpuPhase
+from ..pipelines.phase import Phase as _EnginePhase
 
 
 class Phase:
@@ -90,7 +90,7 @@ class Phase:
         return self.pad_shift(sr)[1]
 
     # -- core transforms (phase.py:113-220) --------------------------------
-    def _engine(self) -> _TpuPhase:
+    def _engine(self) -> _EnginePhase:
         key = (self.num_freqs, self.window, self.resolut, self.y_reverse,
                self.volume_boost, self.HDR, self.IHS, self.device_quantize)
         cached = getattr(self, "_engine_cache", None)
@@ -101,7 +101,7 @@ class Phase:
             resolut=self.resolut, y_reverse=self.y_reverse,
             volume_boost=self.volume_boost if self.volume_boost > 0 else 0.0,
             hdr=self.HDR, ihs=self.IHS > 0)
-        eng = _TpuPhase(cfg, metadata_layout="py", length_mode="py",
+        eng = _EnginePhase(cfg, metadata_layout="py", length_mode="py",
                         device_quantize=self.device_quantize)
         self._engine_cache = (key, eng)
         return eng

@@ -1,6 +1,6 @@
 """Configuration dataclasses for the mel and phase codecs.
 
-TPU-native re-design of the reference config structs:
+Re-design of the reference config structs:
 - ``Mel`` struct: /root/reference/mel/mel.go:10-41 (defaults NumMels=160, fmax=8000,
   Window=256, Resolut=2048, GriffinLimIterations=2).
 - ``Phase`` struct: /root/reference/phase/phase.go:8-28 (defaults NumFreqs=768,

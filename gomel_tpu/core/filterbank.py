@@ -2,9 +2,9 @@
 
 The reference computes the mel projection with per-bin scalar loops
 (``domel``: /root/reference/mel/impl.go:310-345, ``undomel``: mel/impl.go:347-384).
-Both mappings are linear in the spectrum, so the TPU-native design precomputes them
+Both mappings are linear in the spectrum, so this design precomputes them
 once (host-side, float64) as dense matrices and applies them on-device as a single
-MXU matmul — the weights below reproduce the reference's exact area-averaging
+matmul — the weights below reproduce the reference's exact area-averaging
 semantics, including its quirks:
 
 - HTK-style mel scale with break 700 Hz, Q 1127, natural log

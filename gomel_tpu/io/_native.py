@@ -23,6 +23,9 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 
 
+_ALL: list["NativeLib"] = []
+
+
 class NativeLib:
     """Lazy build-and-load of one native helper."""
 
@@ -33,6 +36,11 @@ class NativeLib:
         self._lock = threading.Lock()
         self._lib = None
         self._tried = False
+        _ALL.append(self)
+
+    @property
+    def name(self) -> str:
+        return os.path.basename(self._src)
 
     def get(self):
         """Return the loaded ctypes library, building if needed, or None."""
@@ -83,3 +91,10 @@ _pngfilter = NativeLib("pngfilter.cpp", "_pngfilter.so", _configure_pngfilter)
 def get_lib():
     """PNG filter helper (pngcodec.py's fast path), or None."""
     return _pngfilter.get()
+
+
+def native_status() -> dict[str, bool]:
+    """Build and load every native helper; source name -> whether it loaded
+    (False means its callers run the pure-Python fallback)."""
+    from . import flac  # noqa: F401  (registers the FLAC helper)
+    return {lib.name: lib.get() is not None for lib in _ALL}

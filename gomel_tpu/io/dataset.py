@@ -1,10 +1,10 @@
 """Prefetching audio dataset loader — host ingest for batched pipelines.
 
-The reference processes one file per CLI invocation; a production TPU
+The reference processes one file per CLI invocation; a production
 pipeline needs host-side decode (WAV/FLAC -> float buffers) overlapped with
 device compute. This loader decodes files in a background thread pool and
 yields length-bucketed batches ready for parallel.batch.BatchedMel/Phase, so
-the chip never waits on the filesystem.
+the device never waits on the filesystem.
 
 Single-writer design: one background producer pool, one consumer (the
 training/serving loop) — consistent with the repo's host-threading policy

@@ -45,7 +45,7 @@ def write_png(path, image: np.ndarray, compress_level: int = 1,
     compress_level / compress_strategy: zlib settings for the IDAT deflate.
     PNG is lossless at any setting — this is an encoder-private speed/size
     trade. Measured on real quantized spectrogram streams
-    (benchmarks/exp_file_profile.py, RESULTS.md "PNG deflate strategy"):
+    (host CPU deflate):
     Z_RLE is 2.0-3.2x FASTER than the old level-3 default AND 2.4-5.2%
     SMALLER on Up-filtered spectrogram scanlines (run-length coding matches
     the residual structure; the level is irrelevant under Z_RLE). For

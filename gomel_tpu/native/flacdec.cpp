@@ -1,6 +1,6 @@
 // FLAC decoder — native audio-ingest component of gomel_tpu.
 //
-// TPU-native replacement for the reference's mewkiz/flac Go decoder
+// Native replacement for the reference's mewkiz/flac Go decoder
 // (/root/reference/mel/impl.go:266-296, /root/reference/phase/impl.go:351-381):
 // full-spec stream decoding (CONSTANT/VERBATIM/FIXED/LPC subframes, Rice and
 // Rice2 residual partitions, wasted bits, all stereo decorrelation modes).

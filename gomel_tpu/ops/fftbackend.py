@@ -1,84 +1,26 @@
-"""FFT backend dispatch: XLA FFT vs MXU-matmul FFT vs direct-DFT matmul.
+"""Real FFTs in separate real/imag planes.
 
-Three device implementations, chosen per consumer:
-- ``"xla"``: ``jnp.fft`` — exact f32, vector-unit bound on TPU; the CPU /
-  float64 golden-test path.
-- ``"mxu"``: Cooley-Tukey as MXU matmuls (ops/mxu_fft.py) — FLOP-minimal;
-  wins for encode paths that must run at HIGHEST precision (~1.5x over XLA).
-- ``"mm"``: the whole DFT as ONE matmul (ops/dft_mm.py) — bandwidth-minimal;
-  wins for decode paths that tolerate DEFAULT/HIGH precision (measured
-  1.3-1.7x over the mxu path at the flagship config; table in dft_mm.py).
-
-``backend="auto"`` resolves to the MXU path on TPU and ``jnp.fft`` elsewhere;
-``"auto_lowp"`` resolves to the mm path on TPU (for callers that pass a
-reduced precision) and ``jnp.fft`` elsewhere. All interfaces use separate
-real/imag planes; complex arrays are only formed in the XLA fallback
-internally.
+Thin wrappers over ``jnp.fft`` (cuFFT on the GPU, exact f32): every codec
+kernel passes spectra as (re, im) plane pairs, so complex arrays exist only
+inside these functions.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from . import dft_mm, mxu_fft
 
-
-def resolve(backend: str, n: int) -> str:
-    if backend == "auto":
-        if jax.default_backend() == "tpu" and mxu_fft.supported(n):
-            return "mxu"
-        return "xla"
-    if backend == "auto_lowp":
-        if jax.default_backend() == "tpu":
-            if dft_mm.supported(n):
-                return "mm"
-            if mxu_fft.supported(n):
-                return "mxu"
-        return "xla"
-    if backend not in ("xla", "mxu", "mm"):
-        raise ValueError(f"unknown fft backend {backend!r}")
-    if backend == "mm" and not dft_mm.supported(n):
-        # odd n silently mis-handles the Nyquist row, and huge n would
-        # materialize multi-GB weight matrices — refuse instead
-        raise ValueError(f"fft backend 'mm' does not support n={n} "
-                         f"(need even n <= {dft_mm.MAX_N})")
-    if backend == "mxu" and not mxu_fft.supported(n):
-        raise ValueError(f"fft backend 'mxu' does not support n={n}")
-    return backend
-
-
-def rfft_planes(x: jax.Array, n: int, backend: str = "auto",
-                precision=None):
-    """Real [..., n] -> (re, im) half-spectrum planes [..., n//2+1].
-
-    ``precision`` applies to the matmul paths only (XLA's FFT is exact f32).
-    """
-    r = resolve(backend, n)
-    if r == "mxu":
-        return mxu_fft.rfft(x, n, precision)
-    if r == "mm":
-        return dft_mm.rfft(x, n, precision)
+def rfft_planes(x: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """Real [..., n] -> (re, im) half-spectrum planes [..., n//2+1]."""
     spec = jnp.fft.rfft(x, axis=-1)
     return jnp.real(spec), jnp.imag(spec)
 
 
-def rfft_mag(x: jax.Array, n: int, backend: str = "auto",
-             precision=None) -> jax.Array:
+def rfft_mag(x: jax.Array) -> jax.Array:
     """Real [..., n] -> |rfft| [..., n//2+1]."""
-    r = resolve(backend, n)
-    if r == "mxu":
-        return mxu_fft.rfft_mag(x, n, precision)
-    if r == "mm":
-        return dft_mm.rfft_mag(x, n, precision)
     return jnp.abs(jnp.fft.rfft(x, axis=-1))
 
 
-def irfft_planes(re: jax.Array, im: jax.Array, n: int,
-                 backend: str = "auto", precision=None) -> jax.Array:
+def irfft_planes(re: jax.Array, im: jax.Array, n: int) -> jax.Array:
     """(re, im) half-spectrum [..., n//2+1] -> real [..., n]."""
-    r = resolve(backend, n)
-    if r == "mxu":
-        return mxu_fft.irfft(re, im, n, precision)
-    if r == "mm":
-        return dft_mm.irfft(re, im, n, precision)
     return jnp.fft.irfft(jax.lax.complex(re, im), n=n, axis=-1)

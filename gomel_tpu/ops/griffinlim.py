@@ -1,10 +1,10 @@
 """Griffin-Lim phase reconstruction — device op.
 
-TPU-native re-design of the reference's iterative ISTFT
-(/root/reference/mel/mel.go:76-139). The reference loops per frame with full
-complex FFTs; analysis of its update (see below) lets the TPU version run the
-whole spectrogram batched in rfft space with the iteration as a
-``lax.fori_loop`` whose carry (the signal) stays HBM-resident.
+Re-design of the reference's iterative ISTFT (mel/mel.go:76-139). The
+reference loops per frame with full complex FFTs; analysis of its update
+(see below) lets this version run the whole spectrogram batched in rfft
+space with the iteration as a ``lax.fori_loop`` whose carry (the signal)
+stays in device memory.
 
 Exact-behavior analysis of the reference loop (mel/mel.go:85-136):
 - The spectrogram state enters as ``undospectrum`` output: real values, bins
@@ -33,17 +33,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .stft import frame_signal, hann_window
 from .fftbackend import irfft_planes, rfft_planes
 from .istft import overlap_add
+from .stft import frame_signal, hann_window
 
 
-# Measured equal-quality serving pairs (benchmarks/exp_gl_frontier.py on
-# tonal + speech-like input at the flagship 4096/1280 config, corroborated
-# by the 5-minute long-form sweep in benchmarks/RESULTS.md "GL momentum"):
+# Equal-quality serving pairs (benchmarks/exp_gl_frontier.py on tonal +
+# speech-like input at the flagship 4096/1280 config; a quality derivation,
+# independent of the device):
 # plain-GL(n) quality class -> (momentum, iterations) matching or beating it
-# at the lowest measured wall-clock. Per-iteration cost is unchanged by
-# momentum, so the speedup equals the iteration ratio.
+# in the fewest iterations. Momentum adds one axpy per iteration, so the
+# saving is close to the iteration ratio.
 GL_EQUAL_QUALITY_PAIRS: dict[int, tuple[float, int]] = {
     # reference CLI default (GriffinLimIterations=2, mel/mel.go:39):
     # momentum needs >= 2 iterations of history to engage, so no iteration
@@ -51,7 +51,7 @@ GL_EQUAL_QUALITY_PAIRS: dict[int, tuple[float, int]] = {
     # cost (0.3847 vs 0.3867 tonal / 0.3629 vs 0.3641 speech-like)
     2: (0.99, 2),
     # mid class: momentum-8 beats plain-16 (0.1892 vs 0.1959 tonal,
-    # 0.1851 vs 0.1990 speech-like) -> 2.0x less wall-clock
+    # 0.1851 vs 0.1990 speech-like) -> 2x fewer iterations
     16: (0.99, 8),
     # r5 anchor for the previously-extrapolated mid range: momentum-16
     # beats plain-32 (0.1202 vs 0.1470 tonal, 0.1127 vs 0.1355
@@ -59,15 +59,15 @@ GL_EQUAL_QUALITY_PAIRS: dict[int, tuple[float, int]] = {
     # speech-like) -> the n/2 rule is validated with margin at 32
     32: (0.99, 16),
     # BASELINE long-form class: momentum-24 beats plain-64 (0.0896 vs
-    # 0.1010 tonal, 0.0778 vs 0.0906 speech-like; 0.1238 vs 0.1340 on the
-    # 5-minute long-form shape) -> 2.7x less wall-clock
+    # 0.1010 tonal, 0.0778 vs 0.0906 speech-like; 0.1238 vs 0.1340 on a
+    # 5-minute long-form signal) -> 2.7x fewer iterations
     64: (0.99, 24),
 }
 
 
 def recommended_gl(plain_iters: int) -> tuple[float, int]:
     """(momentum, iterations) matching plain-GL(``plain_iters``) quality at
-    the least measured wall-clock — the packaged serving recommendation.
+    the fewest iterations — the packaged serving recommendation.
 
     Evidence-bound interpolation of :data:`GL_EQUAL_QUALITY_PAIRS`:
     below 16 iterations the measured reductions do not hold (momentum at
@@ -98,7 +98,6 @@ def griffin_lim_magnitudes(linear2: jax.Array) -> jax.Array:
 def griffin_lim(mag_half: jax.Array, hop: int, n_iter: int, key: jax.Array,
                 window=None,
                 init: jax.Array | None = None,
-                fft_backend: str = "auto",
                 momentum: float = 0.0) -> jax.Array:
     """Iterative phase reconstruction.
 
@@ -106,11 +105,10 @@ def griffin_lim(mag_half: jax.Array, hop: int, n_iter: int, key: jax.Array,
     Returns signal [N + (F-1)*hop]. With n_iter=0 returns the random init,
     matching the reference (mel/mel.go:85 loop never runs).
     ``init`` overrides the random initial signal (used by equivalence tests).
+    ``window``: None (Hann) or an explicit analysis/synthesis window.
 
-    ``window``: None (Hann) or a HOST-side np.ndarray lets the mm backend
-    fold the analysis/synthesis window into its DFT weight matrices (saves
-    two 147 MB elementwise passes per iteration at the flagship config); a
-    traced/device array still works but disables the folding.
+    Every iteration runs an exact f32 rFFT/irFFT pair: on the H100 cuFFT
+    beats a direct-DFT matmul at TF32 and at bf16 (PERF.md).
 
     ``momentum``: 0.0 (default) is the reference's plain Griffin-Lim,
     exactly. A value in (0, 1] enables the fast-Griffin-Lim acceleration
@@ -120,95 +118,45 @@ def griffin_lim(mag_half: jax.Array, hop: int, n_iter: int, key: jax.Array,
     Since the iteration's carry here IS the signal and the synthesis map is
     linear, this equals the classical spectrogram-domain FGLA extrapolation
     pushed through synthesis. Cost: one extra signal-length buffer and one
-    fused axpy per iteration — per-iteration time is unchanged within noise
-    (benchmarks/exp_gl_momentum.py), while convergence per iteration
-    improves ~2-4x at 8+ iterations (RESULTS.md "GL momentum"). Beyond
+    fused axpy per iteration, while convergence per iteration improves
+    ~2-4x at 8+ iterations (benchmarks/exp_gl_frontier.py). Beyond
     reference parity; opt-in, off everywhere by default.
     """
-    import numpy as _np
-
     F = mag_half.shape[0]
     N = (mag_half.shape[1] - 1) * 2
     dtype = mag_half.dtype
-    window_np = None
     if window is None:
-        window_np = hann_window(N)
-    elif isinstance(window, _np.ndarray):
-        window_np = window
-    if window_np is not None:
-        window = jnp.asarray(window_np, dtype=dtype)
+        window = hann_window(N)
+    window = jnp.asarray(window, dtype=dtype)
     out_len = N + (F - 1) * hop
     if init is not None:
         sig0 = jnp.asarray(init, dtype=dtype)
     else:
         sig0 = jax.random.uniform(key, (out_len,), dtype=dtype)
+    m = mag_half.astype(dtype)
 
-    # Precision policy (measured, /tmp-reproducible via the ladder in
-    # benchmarks/exp_dftmm.py + RESULTS.md "GL precision ladder"):
-    # - The FORWARD transform only extracts phases; Griffin-Lim replaces the
-    #   magnitudes anyway, and phase errors on near-silent bins are noise by
-    #   construction — DEFAULT (bf16) forward measures identical spectral
-    #   convergence to HIGH/HIGHEST (0.521 vs 0.521 on tonal input).
-    # - The INVERSE transform's error matters only where it reaches the
-    #   output: interior iterations' carries get re-analyzed and their
-    #   magnitudes replaced, so only the FINAL inverse needs precision.
-    #   Measured (RESULTS.md GL ladder + inverse-backend A/B): interior
-    #   inverses at mm-DEFAULT; the FINAL inverse via XLA's native irfft —
-    #   exact f32 AND the fastest final-inverse option at the batch-2
-    #   serving shape (tonal spectral convergence 0.056 vs 0.096 for
-    #   mm-HIGH vs 0.52 all-DEFAULT; 23.6k vs 19.4k a-s/s).
-    # At these precisions the bandwidth-minimal single-matmul DFT
-    # (ops/dft_mm.py) beats the CT-MXU path end-to-end (benchmarks/
-    # exp_dftmm.py), so "auto" resolves via auto_lowp, and the window is
-    # folded into the DFT weights when it is host-side (saves two 147 MB
-    # elementwise passes per iteration at the flagship config).
-    from .fftbackend import resolve
-    from . import dft_mm
-
-    backend = resolve("auto_lowp" if fft_backend == "auto" else fft_backend, N)
-    folded = backend == "mm" and window_np is not None
-
-    def body(sig, prec_fwd, final):
-        frames = frame_signal(sig, N, hop)
-        if folded:
-            re, im = dft_mm.rfft_windowed(frames, N, window_np, prec_fwd)
-        else:
-            re, im = rfft_planes(frames * window, N, backend, prec_fwd)
+    def body(sig):
+        re, im = rfft_planes(frame_signal(sig, N, hop) * window)
         # unit phase; angle(0) = 0 -> unit 1 (matches cmplx.Rect(mag, Phase(0)))
         a = jnp.sqrt(re * re + im * im)
         inv = jnp.where(a > 0, 1.0 / jnp.where(a > 0, a, 1.0), 0.0)
         unit_re = jnp.where(a > 0, re * inv, 1.0)
         unit_im = im * inv
-        m = mag_half.astype(dtype)
-        if final:
-            # exact f32 inverse for the one transform that reaches the output
-            inv_backend = "xla" if backend == "mm" else backend
-            rec = irfft_planes(m * unit_re, m * unit_im, N, inv_backend)
-            rec_w = rec.astype(dtype) * window
-        elif folded:
-            rec_w = dft_mm.irfft_windowed(m * unit_re, m * unit_im, N,
-                                          window_np,
-                                          jax.lax.Precision.DEFAULT)
-        else:
-            rec = irfft_planes(m * unit_re, m * unit_im, N, backend,
-                               jax.lax.Precision.DEFAULT)
-            rec_w = rec.astype(dtype) * window
-        return overlap_add(rec_w.astype(dtype), hop)
+        rec = irfft_planes(m * unit_re, m * unit_im, N)
+        return overlap_add(rec.astype(dtype) * window, hop)
 
-    low = jax.lax.Precision.DEFAULT
     mom = float(momentum)
     if mom != 0.0:
         def accel(_, carry):
             c, t_prev = carry
-            t = body(c, low, False)
+            t = body(c)
             return t + mom * (t - t_prev), t
 
         sig, _ = jax.lax.fori_loop(0, max(n_iter - 1, 0), accel,
                                    (sig0, sig0), unroll=False)
     else:
         sig = jax.lax.fori_loop(0, max(n_iter - 1, 0),
-                                lambda _, s: body(s, low, False), sig0,
-                                unroll=False)
+                                lambda _, s: body(s), sig0, unroll=False)
     if n_iter >= 1:  # final iteration (n_iter is static)
-        sig = body(sig, low, True)
+        sig = body(sig)
     return sig

@@ -1,11 +1,11 @@
-"""Overlap-add iSTFT for TPU.
+"""Overlap-add iSTFT.
 
-TPU-native replacement for the reference's per-sample overlap-add loops:
+Vectorized replacement for the reference's per-sample overlap-add loops:
 - direct iSTFT with window-sum normalization: /root/reference/phase/phase.go:93-133
   (port: /root/reference/phase.py:184-213)
 - un-normalized overlap-add inside Griffin-Lim: /root/reference/mel/mel.go:111-135
 
-Design notes (TPU):
+Design notes:
 - Overlap-add is computed as K shifted elementwise adds over hop-aligned chunks
   (K = ceil(N/hop), static) — no scatter, no serial loop; XLA fuses the adds.
 - The window-sum normalization including the reference's 0.5*max stability
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from .fftbackend import irfft_planes
 
@@ -72,72 +73,30 @@ def window_sum(window: jax.Array, n_frames: int, hop: int) -> jax.Array:
     return out.reshape(-1)[: N + (F - 1) * hop]
 
 
-def chunked_irfft_overlap_add(re: jax.Array, im: jax.Array, hop: int,
-                              window_arr: jax.Array, chunk: int,
-                              fft_backend: str = "xla",
-                              frame_mask: jax.Array | None = None
-                              ) -> jax.Array:
-    """Un-normalized windowed overlap-add synthesis, ``lax.scan`` over frame
-    chunks: [F, N/2+1] planes -> [N + (F-1)*hop] signal.
-
-    The decode-side analog of ops/stft.map_frame_chunks: at hour-scale frame
-    counts the flat path's [F, N] irfft output spills to HBM; per-chunk
-    synthesis keeps it VMEM-resident. Chunks couple through the overlap-add
-    tail (N - hop samples), carried through the scan — numerically identical
-    to the flat kernel up to reduction order. Requires
-    ``chunk*hop >= N - hop`` so a tail never spans two chunk bodies.
-
-    ``frame_mask``: optional [F] bool — frames masked False contribute
-    nothing (the sharded decode's padded-frame mask).
-    """
-    F, bins = re.shape
-    N = (bins - 1) * 2
-    tail_len = N - hop
-    if chunk * hop < tail_len:
-        raise ValueError(f"chunk {chunk} too small: need chunk*hop >= "
-                         f"N - hop = {tail_len}")
-    n_chunks = -(-F // chunk)
-    pad = n_chunks * chunk - F
-    if pad:
-        re = jnp.pad(re, ((0, pad), (0, 0)))
-        im = jnp.pad(im, ((0, pad), (0, 0)))
-    if frame_mask is not None and pad:
-        frame_mask = jnp.pad(frame_mask, (0, pad))
-    reb = re.reshape(n_chunks, chunk, bins)
-    imb = im.reshape(n_chunks, chunk, bins)
-    mb = (frame_mask.reshape(n_chunks, chunk) if frame_mask is not None
-          else None)
-    backend = "xla" if fft_backend == "auto" else fft_backend
-    out_dtype = window_arr.dtype
-
-    def step(tail, inputs):
-        if mb is None:
-            r, i = inputs
-        else:
-            r, i, m = inputs
-        frames_w = irfft_planes(r, i, N, backend).astype(out_dtype) \
-            * window_arr
-        if mb is not None:
-            frames_w = jnp.where(m[:, None], frames_w, 0.0)
-        seg = overlap_add(frames_w, hop)  # [chunk*hop + N - hop]
-        body = seg[: chunk * hop].at[:tail_len].add(tail)
-        return seg[chunk * hop:], body
-
-    # derive the carry from the input (zero-multiplied) so its varying-axes
-    # type matches inside shard_map (a fresh zeros literal is unvarying and
-    # scan rejects the carry type mismatch)
-    init = jnp.zeros((tail_len,), dtype=out_dtype) \
-        + (re[0, 0] * 0).astype(out_dtype)
-    xs = (reb, imb) if mb is None else (reb, imb, mb)
-    tail, bodies = jax.lax.scan(step, init, xs)
-    sig = jnp.concatenate([bodies.reshape(-1), tail])
-    return sig[: N + (F - 1) * hop]
+def window_sum_max(window, n_frames: int, hop: int):
+    """``max(window_sum(window, n_frames, hop))`` from the K = ceil(N/hop)
+    distinct hop-row patterns alone, never the signal-length sum: a host
+    float for a numpy window, a device scalar otherwise. (Reducing the
+    signal-length sum let XLA constant-fold a 28.8M-element reduction, a
+    minute of compile time at 10 minutes of 48 kHz audio.)"""
+    xp = np if isinstance(window, np.ndarray) else jnp
+    w2 = xp.asarray(window) ** 2
+    K = -(-w2.shape[0] // hop)
+    rows = xp.pad(w2, (0, K * hop - w2.shape[0])).reshape(K, hop)
+    prefix = xp.cumsum(rows, axis=0)
+    rows_out = n_frames + K - 1
+    idx = np.arange(rows_out) if rows_out <= 2 * (K - 1) else np.concatenate(
+        [np.arange(K - 1), [K - 1], np.arange(rows_out - K + 1, rows_out)])
+    # window_sum's rows, restricted to one row of each distinct pattern
+    sub = idx - n_frames
+    top = prefix[np.minimum(idx, K - 1)]
+    low = xp.where((sub >= 0)[:, None], prefix[np.clip(sub, 0, K - 1)], 0.0)
+    m = xp.max(top - low)
+    return float(m) if xp is np else m
 
 
 def istft_direct_planes(re: jax.Array, im: jax.Array, hop: int,
-                        window,
-                        fft_backend: str = "auto",
-                        frame_chunk: int | None = None) -> jax.Array:
+                        window) -> jax.Array:
     """Direct (0-iteration) iSTFT with window-sum normalization.
 
     (re, im): real/imag planes of the [F, N//2+1] rfft-layout spectrum.
@@ -148,42 +107,29 @@ def istft_direct_planes(re: jax.Array, im: jax.Array, hop: int,
     normalization where window_sum > 0.5*max, proportional fade where
     1e-21 < window_sum <= threshold.
 
-    TPU backend: XLA's native irfft. Measured at the batch-2 serving shape
-    (benchmarks/RESULTS.md "inverse-transform backend"): the vector-unit
-    FFT beats both matmul formulations for the decode inverse — 1.25 ms vs
-    1.57 ms (mm @ HIGH) per 120 audio-s — AND is exact f32, so decode has
-    no reduced-precision caveat on any platform. (The matmul FFTs still
-    win where their trade fits: CT-HIGHEST for encode, mm-DEFAULT for the
-    Griffin-Lim interior.) Pass fft_backend="mxu"/"mm" to force those.
+    The inverse is an exact f32 irfft (cuFFT on the GPU), so decode has
+    no reduced-precision caveat on any platform.
 
-    ``window``: np.ndarray or device array. ``frame_chunk``: per-chunk
-    synthesis for hour-scale frame counts (chunked_irfft_overlap_add).
+    ``window``: np.ndarray (the threshold is then a host-side constant,
+    ``window_sum_max``) or device array.
     """
-    import numpy as _np
-
     F = re.shape[0]
     N = (re.shape[1] - 1) * 2
     dtype = re.dtype
     window_arr = (jnp.asarray(window, dtype)
-                  if isinstance(window, _np.ndarray) else window)
-    backend = "xla" if fft_backend == "auto" else fft_backend
-    if frame_chunk:
-        sig = chunked_irfft_overlap_add(re, im, hop, window_arr,
-                                        frame_chunk, backend)
-    else:
-        frames = irfft_planes(re, im, N, backend)
-        frames_w = frames.astype(window_arr.dtype) * window_arr
-        sig = overlap_add(frames_w, hop)
+                  if isinstance(window, np.ndarray) else window)
+    frames = irfft_planes(re, im, N)
+    sig = overlap_add(frames.astype(window_arr.dtype) * window_arr, hop)
     wsum = window_sum(window_arr, F, hop)
-    threshold = 0.5 * jnp.max(wsum)
-    return normalize_by_window_sum(sig, wsum, threshold)
+    threshold = 0.5 * window_sum_max(window, F, hop)
+    return normalize_by_window_sum(sig, wsum, jnp.asarray(threshold, dtype))
 
 
-def istft_direct(half_spec: jax.Array, hop: int, window: jax.Array,
-                 fft_backend: str = "auto") -> jax.Array:
+def istft_direct(half_spec: jax.Array, hop: int,
+                 window: jax.Array) -> jax.Array:
     """Complex-input convenience wrapper over ``istft_direct_planes``."""
     return istft_direct_planes(jnp.real(half_spec), jnp.imag(half_spec),
-                               hop, window, fft_backend)
+                               hop, window)
 
 
 def normalize_by_window_sum(sig: jax.Array, wsum: jax.Array,

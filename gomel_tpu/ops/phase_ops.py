@@ -1,6 +1,6 @@
 """Phase-preserving spectrogram codec — device ops.
 
-TPU-native re-design of the reference phase codec:
+Re-design of the reference phase codec:
 - encode: /root/reference/phase/phase.go:41-70 (port: phase.py:113-142)
 - decode: /root/reference/phase/phase.go:72-153 (port: phase.py:144-220)
 - shrink/grow: /root/reference/phase/impl.go:383-403 (port: phase.py:438-472)
@@ -19,15 +19,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .stft import frame_signal, hann_window, map_frame_chunks
+from .stft import frame_signal, hann_window
 from .fftbackend import rfft_planes
 from .istft import istft_direct_planes
 
 
 def phase_encode(x_padded: jax.Array, num_freqs: int, frame_len: int, hop: int,
-                 window: jax.Array | None = None,
-                 fft_backend: str = "auto",
-                 frame_chunk: int | None = None) -> jax.Array:
+                 window: jax.Array | None = None) -> jax.Array:
     """Audio -> phase spectrogram [F, num_freqs, 2].
 
     Reference (phase/phase.go:50-64): per bin j in [0, N/2):
@@ -35,45 +33,28 @@ def phase_encode(x_padded: jax.Array, num_freqs: int, frame_len: int, hop: int,
         ch0 = imag(v0) = imag(S[j+1]); ch1 = real(v1) = real(S[j+1])
     then ``shrink`` keeps the first num_freqs bins (phase/impl.go:383-391).
     So the channels are just (imag, real) of rfft bins 1..num_freqs.
-
-    frame_chunk: lax.map chunking for hour-scale inputs (numerically
-    identical; see ops/mel_ops.mel_encode).
     """
     if window is None:
         window = jnp.asarray(hann_window(frame_len), dtype=x_padded.dtype)
-    if frame_chunk:
-        return map_frame_chunks(
-            x_padded, frame_len, hop, frame_chunk,
-            lambda seg: phase_encode(seg, num_freqs, frame_len, hop,
-                                     window, fft_backend))
     frames = frame_signal(x_padded, frame_len, hop)
-    re, im = rfft_planes(frames * window, frame_len, fft_backend)
+    re, im = rfft_planes(frames * window)
     return jnp.stack([im[:, 1:num_freqs + 1], re[:, 1:num_freqs + 1]],
                      axis=-1)
 
 
 def phase_encode_batch(xb: jax.Array, num_freqs: int, frame_len: int,
-                       hop: int, window: jax.Array | None = None,
-                       fft_backend: str = "auto",
-                       frame_chunk: int | None = None) -> jax.Array:
+                       hop: int, window: jax.Array | None = None
+                       ) -> jax.Array:
     """Batched audio [B, L] -> phase spectrogram [B, F, num_freqs, 2].
 
     Batch-explicit form of ``jax.vmap(phase_encode)`` — identical numerics.
-    Unlike the mel encoder (ops/mel_ops.mel_encode_batch, a measured
-    ~15-20% win), the phase tail is slice+stack with no filterbank matmul
-    and the interleaved A/B measured PAR/no win for this form
-    (benchmarks/exp_phase_batch_ab.py: vmap median 79.8k vs 76.7k a-s/s,
-    inside the shared-chip noise band) — so the hot call sites keep
-    ``jax.vmap(phase_encode)`` and this exists for API symmetry.
+    The hot call sites keep ``jax.vmap(phase_encode)``; this exists for API
+    symmetry with ops/mel_ops.mel_encode_batch.
     """
     if window is None:
         window = jnp.asarray(hann_window(frame_len), dtype=xb.dtype)
-    if frame_chunk:
-        return jax.vmap(lambda x: phase_encode(
-            x, num_freqs, frame_len, hop, window, fft_backend,
-            frame_chunk=frame_chunk))(xb)
     frames = jax.vmap(lambda s: frame_signal(s, frame_len, hop))(xb)
-    re, im = rfft_planes(frames * window, frame_len, fft_backend)
+    re, im = rfft_planes(frames * window)
     return jnp.stack([im[..., 1:num_freqs + 1], re[..., 1:num_freqs + 1]],
                      axis=-1)
 
@@ -134,26 +115,17 @@ def grow_half_planes(spec2: jax.Array, n_bins: int
 
 def phase_decode(spec2: jax.Array, frame_len: int, hop: int,
                  volume_boost: float = 0.0,
-                 window: jax.Array | None = None,
-                 fft_backend: str = "auto",
-                 frame_chunk: int | None = None) -> jax.Array:
+                 window: jax.Array | None = None) -> jax.Array:
     """Phase spectrogram [F, num_freqs, 2] -> audio [N + (F-1)*hop].
 
     grow -> half-spectrum planes -> direct iSTFT with window-sum normalization
     -> optional volume boost (reference: phase/phase.go:136-153; boost applied
     when != 0, phase/phase.go:146 — note the port uses > 0, phase.py:216).
-
-    frame_chunk: per-chunk synthesis for hour-scale frame counts
-    (ops/istft.chunked_irfft_overlap_add; numerically identical).
     """
     if window is None:
-        # host-side np; istft_direct_planes converts it on device and applies
-        # it as a separate multiply (the weight-fold only exists on the
-        # Griffin-Lim interior path, ops/dft_mm.rfft_windowed)
-        window = hann_window(frame_len)
+        window = hann_window(frame_len)  # host-side np, a compile-time constant
     re, im = grow_half_planes(spec2, frame_len // 2)
-    sig = istft_direct_planes(re, im, hop, window, fft_backend,
-                              frame_chunk=frame_chunk)
+    sig = istft_direct_planes(re, im, hop, window)
     if volume_boost != 0.0:
         sig = sig * jnp.asarray(volume_boost, dtype=sig.dtype)
     return sig

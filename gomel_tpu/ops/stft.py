@@ -1,15 +1,17 @@
-"""Framed STFT for TPU.
+"""Framed STFT.
 
-TPU-native replacement for the reference's per-frame scalar STFT
-(gossp ``stft.STFT``; vectorized semantics proven by the port at
-/root/reference/phase.py:119-127): hop-aligned frame gather + Hann window +
-batched real FFT over all frames at once.
+Vectorized replacement for the reference's per-frame scalar STFT
+(gossp ``stft.STFT``; vectorized semantics proven by the port's
+phase.py:119-127): hop-aligned frame gather + Hann window + batched real FFT
+over all frames at once.
 
-Design notes (TPU):
+Design notes:
 - Frames are gathered with a hop-reshape + K shifted slices (K = ceil(N/hop), a
   small static constant — 4 for the flagship 4096/1280 config). This lowers to
   pure static slices/concats that XLA fuses; no dynamic gather.
-- ``jnp.fft.rfft`` maps to XLA's FFT, which is already near speed-of-light on TPU.
+- ``jnp.fft.rfft`` maps to XLA's FFT (cuFFT on the GPU) over the whole
+  [F, N] frame block. Long signals stay flat: on the H100 a lax.map over
+  1024-frame chunks was slower at 30 s, 10 min and 60 min (PERF.md).
 - Everything is shape-static and jit/vmap-friendly; batch by vmapping over the
   leading axis.
 """
@@ -68,48 +70,3 @@ def stft(x: jax.Array, frame_len: int, hop: int,
         window = jnp.asarray(hann_window(frame_len), dtype=x.dtype)
     frames = frames * window
     return jnp.fft.rfft(frames, axis=-1)
-
-
-# ---------------------------------------------------------------------------
-# Device-side frame chunking for long-form analysis
-# ---------------------------------------------------------------------------
-
-def auto_frame_chunk(n_frames: int, threshold: int = 3072,
-                     chunk: int = 1024) -> int | None:
-    """Chunk size policy for frame-local analysis kernels: at the ~30 s
-    serving shape the [F, frame_len] intermediates are VMEM-resident and
-    chunking only adds loop overhead; past a few thousand frames they spill
-    to HBM and a ``lax.map`` over fixed chunks restores VMEM residency —
-    measured 2.03x at the 30-minute shape with chunk 1024 (1.9-2.0x across
-    256-2048; benchmarks/exp_longform_chunked.py, RESULTS.md)."""
-    return chunk if n_frames >= threshold else None
-
-
-def map_frame_chunks(x: jax.Array, frame_len: int, hop: int, chunk: int,
-                     per_chunk_fn) -> jax.Array:
-    """Run a frame-local analysis kernel over ``chunk``-frame slices of a
-    signal in ONE dispatch (``lax.map``), keeping each chunk's [chunk,
-    frame_len] intermediates VMEM-resident.
-
-    ``per_chunk_fn`` maps a signal segment of ``chunk*hop + frame_len - hop``
-    samples to ``[chunk, ...]`` frame-wise outputs. The signal is zero-padded
-    so every chunk is full; the result is sliced back to the true frame
-    count — numerically identical to the unchunked kernel on the real frames
-    (frames are analysis-independent; only shape-dependent XLA reduction
-    order differs, ~1e-6 relative)."""
-    L = x.shape[0]
-    F = (L - frame_len) // hop + 1
-    if F <= 0:
-        raise ValueError(f"signal too short for framing: L={L}")
-    n_chunks = -(-F // chunk)
-    need = n_chunks * chunk * hop + frame_len - hop
-    if need > L:
-        x = jnp.pad(x, (0, need - L))
-    seg_len = chunk * hop + frame_len - hop
-
-    def one(c):
-        seg = jax.lax.dynamic_slice(x, (c * chunk * hop,), (seg_len,))
-        return per_chunk_fn(seg)
-
-    out = jax.lax.map(one, jnp.arange(n_chunks))
-    return out.reshape((n_chunks * chunk,) + out.shape[2:])[:F]

@@ -1,7 +1,7 @@
 """Distribution layer: mesh setup, data-parallel batching, frame sharding.
 
 The reference is single-process/single-core (SURVEY.md §2.6); this package is
-the TPU-native scale-out subsystem: ``('data','frame')`` meshes, NamedSharding
+the scale-out subsystem: ``('data','frame')`` meshes, NamedSharding
 batch pipelines, and shard_map halo-exchange kernels for long-form audio.
 """
 from .mesh import (

@@ -1,6 +1,6 @@
 """Length-bucketed batching + data-parallel pipelines.
 
-The reference processes one file at a time (SURVEY.md §3); the TPU build runs
+The reference processes one file at a time (SURVEY.md §3); this build runs
 utterance batches under one jit. XLA needs static shapes, so variable-length
 audio is grouped into length buckets (each bucket = one compiled program) and
 padded with the reference's own padding scheme (mel/impl.go:429-455), which
@@ -241,8 +241,7 @@ class BatchedMel(_BatchedBase):
             inverse_mel_weights(c.n_bins, c.num_mels, c.mel_fmin, c.mel_fmax),
             dtype)
         self._window = jnp.asarray(hann_window(c.resolut), dtype)
-        # batch-explicit encode: +4-20% over jit(vmap(mel_encode)) on v5e
-        # depending on ambient load, never slower (ops/mel_ops.py)
+        # batch-explicit encode with constant weights (ops/mel_ops.py)
         self._encode = jax.jit(
             lambda xb: mel_encode_batch(xb, c.num_mels, c.resolut, c.window,
                                         self._fwd, self._window))
@@ -377,8 +376,7 @@ class BatchedPhase(_BatchedBase):
         self.config = config or PhaseConfig()
         c = self.config
         self._window = jnp.asarray(hann_window(c.resolut), dtype)
-        # vmap form kept: the batch-explicit phase encoder measured par
-        # (benchmarks/exp_phase_batch_ab.py) — no matmul tail to fuse
+        # vmap form: the phase tail is slice+stack, no matmul to batch
         self._encode = jax.jit(jax.vmap(
             lambda x: phase_encode(x, c.num_freqs, c.resolut, c.window,
                                    self._window)))

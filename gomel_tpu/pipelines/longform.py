@@ -1,7 +1,7 @@
 """Long-form frame-sharded pipelines — user-facing API over parallel/sharded.
 
 The reference processes arbitrarily long files on one CPU core in O(N)
-(SURVEY.md §5); this is the TPU scale-out equivalent: hour-scale audio is
+(SURVEY.md §5); this is the multi-device equivalent: hour-scale audio is
 frame-sharded across the mesh's 'frame' axis with one-analysis-window halo
 exchange, composing with the 'data' batch axis. This module hides the
 FrameShardPlan/padding/trim bookkeeping behind the same encode/decode shapes

@@ -1,6 +1,6 @@
 """High-level mel codec pipeline.
 
-TPU-native equivalent of the reference ``Mel`` API
+Equivalent of the reference ``Mel`` API
 (/root/reference/mel/mel.go): host-side orchestration (audio files, PNG
 codec, length math) around jitted device kernels (ops/mel_ops.py).
 
@@ -20,13 +20,13 @@ import numpy as np
 
 from ..core.config import ConfigError, MelConfig
 from ..core.filterbank import mel_weights, inverse_mel_weights
-from ..core.framing import is_padded, num_frames, pad_length
+from ..core.framing import is_padded, pad_length
 from ..io import audio as audio_io
 from ..io import imagecodec
 from ..ops.mel_ops import mel_encode, mel_decode
 from ..ops.quantize import (dequantize_mel_plane, pcm16_encode,
                             pcm16_ingest, quantize_mel_plane)
-from ..ops.stft import auto_frame_chunk, hann_window
+from ..ops.stft import hann_window
 
 
 class Mel:
@@ -58,10 +58,9 @@ class Mel:
         self._inv = None
         self._window = None
         # per-instance jitted codecs CLOSE OVER the weight constants: the
-        # filterbank bakes into the HLO instead of arriving as an argument —
-        # measured +15% on the single-file serving-shape encode (the same
-        # constant-weights win the batch/sharded paths get; decode measured
-        # par, bit-identical). One trace per (frame_chunk / momentum) value.
+        # filterbank bakes into the HLO instead of arriving as an argument
+        # (the batch and sharded paths do the same). One trace per
+        # program kind (and momentum value).
         self._fn_cache: dict = {}
 
     # -- cached device constants ------------------------------------------
@@ -82,15 +81,14 @@ class Mel:
                                        dtype=self.dtype)
         return self._window
 
-    def _encode_fn(self, frame_chunk):
-        key = ("enc", frame_chunk)
+    def _encode_fn(self):
+        key = ("enc",)
         if key not in self._fn_cache:
             c = self.config
             fwd, _ = self._weights()
             win = self._win()
             self._fn_cache[key] = jax.jit(lambda x: mel_encode(
-                x, c.num_mels, c.resolut, c.window, fwd, win,
-                frame_chunk=frame_chunk))
+                x, c.num_mels, c.resolut, c.window, fwd, win))
         return self._fn_cache[key]
 
     def _decode_fn(self, momentum):
@@ -98,16 +96,15 @@ class Mel:
         if key not in self._fn_cache:
             c = self.config
             _, inv = self._weights()
-            # window=None -> Hann, folded into the mm-path DFT weights on TPU
             self._fn_cache[key] = jax.jit(lambda lm, k: mel_decode(
                 lm, c.resolut, c.window, inv, c.griffin_lim_iterations, k,
                 c.tune_mul, c.tune_add, None, momentum=float(momentum)))
         return self._fn_cache[key]
 
-    def _encode_quantize_fn(self, frame_chunk):
+    def _encode_quantize_fn(self):
         # encode + PNG quantizer in ONE device program: only the uint8
         # planes and the two global extrema cross the host boundary
-        key = ("encq", frame_chunk)
+        key = ("encq",)
         if key not in self._fn_cache:
             c = self.config
             fwd, _ = self._weights()
@@ -115,16 +112,16 @@ class Mel:
 
             def fn(x):
                 spec = mel_encode(x, c.num_mels, c.resolut, c.window, fwd,
-                                  win, frame_chunk=frame_chunk)
+                                  win)
                 return quantize_mel_plane(spec, 255)
             self._fn_cache[key] = jax.jit(fn)
         return self._fn_cache[key]
 
-    def _encode_quantize_pcm_fn(self, frame_chunk, pad_to, scale=32768.0):
+    def _encode_quantize_pcm_fn(self, pad_to, scale=32768.0):
         # RAW PCM-16 variant: shared device prologue
         # (ops/quantize.pcm16_ingest — int16->float, mean, pad), then
         # encode + quantize; int16 upload halves the encode-side bytes
-        key = ("encqp", frame_chunk, pad_to, float(scale))
+        key = ("encqp", pad_to, float(scale))
         if key not in self._fn_cache:
             c = self.config
             fwd, _ = self._weights()
@@ -133,7 +130,7 @@ class Mel:
             def fn(pcm):
                 x = pcm16_ingest(pcm, self.dtype, scale, pad_to)
                 spec = mel_encode(x, c.num_mels, c.resolut, c.window, fwd,
-                                  win, frame_chunk=frame_chunk)
+                                  win)
                 return quantize_mel_plane(spec, 255)
             self._fn_cache[key] = jax.jit(fn)
         return self._fn_cache[key]
@@ -177,11 +174,7 @@ class Mel:
         padded = pad_length(len(x), self.config.window)
         if padded != len(x):
             x = np.pad(x, (0, padded - len(x)))
-        c = self.config
-        # hour-scale inputs: chunked analysis keeps per-chunk intermediates
-        # VMEM-resident (ops/stft.auto_frame_chunk)
-        fc = auto_frame_chunk(num_frames(len(x), c.resolut, c.window))
-        return self._encode_fn(fc)(jnp.asarray(x, dtype=self.dtype))
+        return self._encode_fn()(jnp.asarray(x, dtype=self.dtype))
 
     def encode_quantized(self, x):
         """Audio -> (img2 [mels, F, 2] uint8, mgc_max, mgc_min): the encode
@@ -197,9 +190,7 @@ class Mel:
         padded = pad_length(len(x), self.config.window)
         if padded != len(x):
             x = np.pad(x, (0, padded - len(x)))
-        c = self.config
-        fc = auto_frame_chunk(num_frames(len(x), c.resolut, c.window))
-        return self._encode_quantize_fn(fc)(jnp.asarray(x, dtype=self.dtype))
+        return self._encode_quantize_fn()(jnp.asarray(x, dtype=self.dtype))
 
     def decode(self, logmel, seed: int = 0, momentum: float = 0.0) -> jax.Array:
         """log-mel [F, num_mels, 2] -> audio (device array), Griffin-Lim.
@@ -281,9 +272,7 @@ class Mel:
                 pcm = buf
                 c = self.config
                 padded = pad_length(pcm.shape[0], c.window)
-                fc = auto_frame_chunk(num_frames(padded, c.resolut,
-                                                 c.window))
-                fn = self._encode_quantize_pcm_fn(fc, padded)
+                fn = self._encode_quantize_pcm_fn(padded)
                 img2, mx, mn = fn(jnp.asarray(pcm))
                 img2 = np.asarray(img2)
                 imagecodec.save_mel_image_quantized(
@@ -306,12 +295,9 @@ class Mel:
                 pcm = buf
                 c = self.config
                 padded = pad_length(pcm.shape[0], c.window)
-                fc = auto_frame_chunk(num_frames(padded, c.resolut,
-                                                 c.window))
                 # mel FLAC scaling 1/65536 (mel/impl.go:290) — power of
                 # two, exact on device
-                fn = self._encode_quantize_pcm_fn(fc, padded,
-                                                  scale=65536.0)
+                fn = self._encode_quantize_pcm_fn(padded, scale=65536.0)
                 img2, mx, mn = fn(jnp.asarray(pcm))
                 img2 = np.asarray(img2)
                 imagecodec.save_mel_image_quantized(
@@ -340,7 +326,7 @@ class Mel:
         """FLAC file -> device log-mel [F, num_mels, 2] (mel 1/65536
         scaling, mel/impl.go:290; go_concat channel handling so a stereo
         FLAC yields the SAME spectrogram content as the PNG path
-        ``to_mel_flac`` — the two routes diverged in round 1, ADVICE #3)."""
+        ``to_mel_flac``)."""
         buf, _ = audio_io.load_flac(input_file, mono="go_concat",
                                     scaling="mel")
         return self.encode(buf)

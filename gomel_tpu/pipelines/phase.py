@@ -1,6 +1,6 @@
 """High-level phase codec pipeline.
 
-TPU-native equivalent of the reference ``Phase`` API
+Equivalent of the reference ``Phase`` API
 (/root/reference/phase/phase.go and the Python port /root/reference/phase.py).
 
 Reference method map:
@@ -27,45 +27,42 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.config import (PhaseConfig, num_freqs_for_sample_rate, pad_shift)
-from ..core.framing import is_padded, num_frames, pad_length
+from ..core.framing import is_padded, pad_length
 from ..io import audio as audio_io
 from ..io import imagecodec
 from ..ops.phase_ops import phase_encode, phase_decode
 from ..ops.quantize import (dequantize_planes, pcm16_encode,
                             pcm16_ingest, quantize_planes)
 from ..ops.resample import zero_stuff_upsample
-from ..ops.stft import auto_frame_chunk, hann_window
+from ..ops.stft import hann_window
 
 
 # Encode jits close over the Hann window as a compile-time CONSTANT
 # (numpy array, baked into the HLO) rather than taking it as a traced
-# argument: measured +7% median steady-state encode on chip, 4/4 pairwise
-# interleaved rounds, bit-identical output (RESULTS.md "window-as-constant")
-# — the same pattern that won +15% on Mel.encode. Cached per
-# (num_freqs, frame_len, hop, frame_chunk[, max_val, ihs]) signature.
+# argument, like Mel's weights. Cached per
+# (num_freqs, frame_len, hop[, max_val, ihs]) signature.
 @functools.lru_cache(maxsize=64)
-def _encode_jit_for(num_freqs, frame_len, hop, frame_chunk, np_dtype):
+def _encode_jit_for(num_freqs, frame_len, hop, np_dtype):
     window = hann_window(frame_len).astype(np_dtype)
     return jax.jit(lambda x: phase_encode(x, num_freqs, frame_len, hop,
-                                          window, frame_chunk=frame_chunk))
+                                          window))
 
 
 @functools.lru_cache(maxsize=64)
-def _encode_quantize_jit_for(num_freqs, frame_len, hop, frame_chunk,
-                             max_val, ihs_passes, np_dtype):
+def _encode_quantize_jit_for(num_freqs, frame_len, hop, max_val,
+                             ihs_passes, np_dtype):
     # encode + PNG quantizer in ONE device program: only the integer image
     # planes and two extrema pairs ever cross the host boundary
     window = hann_window(frame_len).astype(np_dtype)
 
     def fn(x):
-        spec = phase_encode(x, num_freqs, frame_len, hop, window,
-                            frame_chunk=frame_chunk)
+        spec = phase_encode(x, num_freqs, frame_len, hop, window)
         return quantize_planes(spec, max_val, ihs_passes)
     return jax.jit(fn)
 
 
 @functools.lru_cache(maxsize=64)
-def _encode_quantize_pcm_jit_for(num_freqs, frame_len, hop, frame_chunk,
+def _encode_quantize_pcm_jit_for(num_freqs, frame_len, hop,
                                  max_val, ihs_passes, np_dtype,
                                  zp, zs, pad_to, scale=32768.0):
     # the full file-encode program from RAW PCM-16: int16->float (exact:
@@ -78,45 +75,39 @@ def _encode_quantize_pcm_jit_for(num_freqs, frame_len, hop, frame_chunk,
 
     def fn(pcm):
         x = pcm16_ingest(pcm, np_dtype, scale, pad_to, zp, zs)
-        spec = phase_encode(x, num_freqs, frame_len, hop, window,
-                            frame_chunk=frame_chunk)
+        spec = phase_encode(x, num_freqs, frame_len, hop, window)
         return quantize_planes(spec, max_val, ihs_passes)
     return jax.jit(fn)
 
 
 @functools.partial(jax.jit, static_argnames=("frame_len", "hop",
-                                             "volume_boost", "frame_chunk",
+                                             "volume_boost",
                                              "max_val", "ihs_passes"))
 def _dequantize_decode_jit(img2, maxs, mins, frame_len, hop, volume_boost,
-                           frame_chunk, max_val, ihs_passes):
+                           max_val, ihs_passes):
     # de-quantize + decode in ONE device program: only integer planes and
     # the extrema pairs are uploaded (ops/quantize.dequantize_planes)
     spec = dequantize_planes(img2, maxs, mins, max_val, ihs_passes)
-    return phase_decode(spec, frame_len, hop, volume_boost, None,
-                        frame_chunk=frame_chunk)
+    return phase_decode(spec, frame_len, hop, volume_boost, None)
 
 
 @functools.partial(jax.jit, static_argnames=("frame_len", "hop",
-                                             "volume_boost", "frame_chunk",
+                                             "volume_boost",
                                              "max_val", "ihs_passes"))
 def _dequantize_decode_pcm_jit(img2, maxs, mins, frame_len, hop,
-                               volume_boost, frame_chunk, max_val,
-                               ihs_passes):
+                               volume_boost, max_val, ihs_passes):
     # the file-decode program: dequantize + decode + PCM-16 conversion
     # (ops/quantize.pcm16_encode — bit-identical to save_wav's host
     # conversion) so the readback is int16, half the float traffic
     spec = dequantize_planes(img2, maxs, mins, max_val, ihs_passes)
     return pcm16_encode(phase_decode(spec, frame_len, hop, volume_boost,
-                                     None, frame_chunk=frame_chunk))
+                                     None))
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("frame_len", "hop", "volume_boost",
-                                    "frame_chunk"))
-def _decode_jit(spec2, frame_len, hop, volume_boost, frame_chunk=None):
-    # window=None -> Hann, folded into the mm-path DFT weights on TPU
-    return phase_decode(spec2, frame_len, hop, volume_boost, None,
-                        frame_chunk=frame_chunk)
+                   static_argnames=("frame_len", "hop", "volume_boost"))
+def _decode_jit(spec2, frame_len, hop, volume_boost):
+    return phase_decode(spec2, frame_len, hop, volume_boost, None)
 
 
 class Phase:
@@ -169,10 +160,7 @@ class Phase:
         if padded != len(x):
             x = np.pad(x, (0, padded - len(x)))
         c = self.config
-        # hour-scale inputs: chunked analysis keeps per-chunk intermediates
-        # VMEM-resident (ops/stft.auto_frame_chunk)
-        fc = auto_frame_chunk(num_frames(len(x), c.resolut, c.window))
-        fn = _encode_jit_for(c.num_freqs, c.resolut, c.window, fc,
+        fn = _encode_jit_for(c.num_freqs, c.resolut, c.window,
                              np.dtype(self.dtype).name)
         return fn(jnp.asarray(x, dtype=self.dtype))
 
@@ -189,9 +177,8 @@ class Phase:
         if padded != len(x):
             x = np.pad(x, (0, padded - len(x)))
         c = self.config
-        fc = auto_frame_chunk(num_frames(len(x), c.resolut, c.window))
         fn = _encode_quantize_jit_for(
-            c.num_freqs, c.resolut, c.window, fc, 65535 if c.hdr else 255,
+            c.num_freqs, c.resolut, c.window, 65535 if c.hdr else 255,
             c.ihs_passes, np.dtype(self.dtype).name)
         return fn(jnp.asarray(x, dtype=self.dtype))
 
@@ -199,9 +186,7 @@ class Phase:
         """Phase spectrogram [F, num_freqs, 2] -> audio (device array)."""
         c = self.config
         spec2 = jnp.asarray(spec2, dtype=self.dtype)
-        fc = auto_frame_chunk(spec2.shape[0])  # hour-scale: chunked synthesis
-        return _decode_jit(spec2, c.resolut, c.window,
-                           float(c.volume_boost), frame_chunk=fc)
+        return _decode_jit(spec2, c.resolut, c.window, float(c.volume_boost))
 
     def decode_quantized(self, planes, maxs, mins) -> jax.Array:
         """Integer PNG planes [nf, F, 2] + per-channel extrema -> audio: the
@@ -209,11 +194,10 @@ class Phase:
         (ops/quantize.dequantize_planes). Only the integer planes and two
         extrema pairs are uploaded (imagecodec.load_phase_image_raw)."""
         c = self.config
-        fc = auto_frame_chunk(np.asarray(planes).shape[1])
         return _dequantize_decode_jit(
             jnp.asarray(planes), jnp.asarray(maxs, jnp.float32),
             jnp.asarray(mins, jnp.float32), c.resolut, c.window,
-            float(c.volume_boost), fc, 65535 if c.hdr else 255,
+            float(c.volume_boost), 65535 if c.hdr else 255,
             c.ihs_passes)
 
     def decode_quantized_pcm16(self, planes, maxs, mins):
@@ -222,11 +206,10 @@ class Phase:
         converting the float result through io.audio.save_wav (*32768 is an
         exact power-of-two scale); the readback is half the bytes."""
         c = self.config
-        fc = auto_frame_chunk(np.asarray(planes).shape[1])
         return _dequantize_decode_pcm_jit(
             jnp.asarray(planes), jnp.asarray(maxs, jnp.float32),
             jnp.asarray(mins, jnp.float32), c.resolut, c.window,
-            float(c.volume_boost), fc, 65535 if c.hdr else 255,
+            float(c.volume_boost), 65535 if c.hdr else 255,
             c.ihs_passes)
 
     # -- reference-layout API --------------------------------------------------
@@ -303,9 +286,8 @@ class Phase:
             up_len = original_pre
         original = original_pre if self.length_mode == "go" else up_len
         padded = pad_length(up_len, c.window)
-        fc = auto_frame_chunk(num_frames(padded, c.resolut, c.window))
         fn = _encode_quantize_pcm_jit_for(
-            c.num_freqs, c.resolut, c.window, fc, 65535 if c.hdr else 255,
+            c.num_freqs, c.resolut, c.window, 65535 if c.hdr else 255,
             c.ihs_passes, np.dtype(self.dtype).name, zp, zs, padded,
             float(scale))
         img2, maxs, mins = fn(jnp.asarray(pcm))

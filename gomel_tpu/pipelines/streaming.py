@@ -18,12 +18,10 @@ single-block streams below that get the exact per-length threshold instead
 
 Parity targets: phase/phase.go:41-153 buffer semantics, chunked.
 
-Relation to the round-3 ``frame_chunk`` kernels (ops/stft.py, ops/istft.py):
-those chunk INSIDE one device dispatch for throughput (whole signal in HBM,
-per-chunk intermediates VMEM-resident); this module chunks at the HOST
+Relation to the one-dispatch codecs (Mel/Phase/LongForm*): those keep the
+whole signal and its frames in device memory; this module chunks at the HOST
 boundary for O(chunk) total memory — pick streaming when the audio doesn't
-fit device memory at all, frame_chunk (automatic in Mel/Phase/LongForm*)
-when it does.
+fit device memory at all.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Generate byte-exact Go-layout phase PNG fixtures (VERDICT r3 item 5).
+"""Generate byte-exact Go-layout phase PNG fixtures.
 
 The repo's phase reader was previously validated only against the repo's
 own writer (self-consistency). The reference repo ships no Go-binary phase

@@ -144,8 +144,8 @@ def test_decode_accepts_global_encode_result():
 
 def test_batch_explicit_encoders_match_vmap():
     """mel_encode_batch / phase_encode_batch are a pure formulation change
-    (adopted for the measured ~15-20% TPU win, ops/mel_ops.py) — their
-    output must match jax.vmap of the single-signal encoders."""
+    (ops/mel_ops.py) — their output must match jax.vmap of the
+    single-signal encoders."""
     import jax
     from gomel_tpu.core.filterbank import mel_weights
     from gomel_tpu.ops.mel_ops import mel_encode, mel_encode_batch
@@ -167,11 +167,6 @@ def test_batch_explicit_encoders_match_vmap():
     wantp = jax.vmap(lambda x: phase_encode(x, num_freqs, frame_len, hop))(xb)
     np.testing.assert_allclose(np.asarray(gotp), np.asarray(wantp),
                                rtol=1e-12, atol=1e-12)
-
-    # chunked rows route through the per-signal lax.map path unchanged
-    got_c = mel_encode_batch(xb, num_mels, frame_len, hop, fwd, frame_chunk=7)
-    np.testing.assert_allclose(np.asarray(got_c), np.asarray(want),
-                               rtol=1e-9, atol=1e-9)
 
 
 def test_batched_mel_encode_quantized_matches_single():

@@ -37,8 +37,8 @@ def test_bench_constants_shape():
 
 
 def test_bench_main_importable_and_compiles_nothing_at_import():
-    # importing bench must not trigger jax device work (the driver imports
-    # in a TPU process where first compiles are minutes)
+    # importing bench must not trigger jax device work (it is imported by
+    # benchmarks/roofline.py and by these tests)
     out = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms', 'cpu'); "

@@ -175,7 +175,7 @@ def test_info_tool_prints_artifact_meta(tmp_path, capsys):
     from gomel_tpu import serving, MelConfig
     cfg = MelConfig(num_mels=16, resolut=256, window=64)
     exp = serving.export_mel_encoder(cfg, seconds=0.05, sample_rate=8000,
-                                     batch=2, fft_backend="xla",
+                                     batch=2,
                                      platforms=("cpu",))
     p = str(tmp_path / "a.jaxexp")
     serving.save_exported(exp, p, meta=serving.artifact_meta(

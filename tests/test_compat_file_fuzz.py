@@ -1,4 +1,4 @@
-"""Randomized FILE-level differential vs the reference port (VERDICT r3 #6).
+"""Randomized FILE-level differential vs the reference port.
 
 test_oracle_fuzz.py pins the buffer-level ops against the imported
 reference port; this fuzzes the full FILE APIs — ``to_phase_wav``
@@ -136,7 +136,7 @@ def test_file_level_differential(sr, mode, seed, length):
        seed=st.integers(0, 2**31 - 1), length=st.integers(2_000, 24_000))
 def test_file_level_differential_device_quantize(sr, mode, seed, length):
     """Same differential with the device-fused quantizer on OUR side
-    (VERDICT r4 #5): Phase(device_quantize=True) writes PNGs within one
+   : Phase(device_quantize=True) writes PNGs within one
     quantization step of the port's (HDR included at 65535 levels, where
     f32 rounding can reach 2 steps) with EXACT metadata, and its fused
     dequantize+decode of the port's own PNG matches the port's WAV within

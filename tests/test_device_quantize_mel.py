@@ -1,6 +1,6 @@
 """Mel device-fused PNG quantization (ops/quantize.py) vs the host path.
 
-Mirror of tests/test_device_quantize.py for the mel codec (VERDICT r4 #1):
+Mirror of tests/test_device_quantize.py for the mel codec:
 Mel(device_quantize=True) must produce byte-near images (<=1 quantization
 step, rare f32-vs-f64 trunc boundary flips), identical metadata, files the
 standard reader accepts, and a fused dequantize+boost+decode whose WAV

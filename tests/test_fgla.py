@@ -86,7 +86,7 @@ def test_momentum_converges_faster(n_iter):
 
 
 def test_equal_quality_pairs_rederive():
-    """Guard for the PACKAGED serving recommendation (VERDICT r3 item 4):
+    """Guard for the PACKAGED serving recommendation:
     re-derive the measured equal-quality pairs cheaply — momentum-24 must
     match-or-beat plain-64 and momentum-8 must match-or-beat plain-16 on
     tonal input (benchmarks/exp_gl_frontier.py derivation; shipped as

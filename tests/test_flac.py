@@ -244,7 +244,7 @@ def test_midstream_corruption_resyncs(tmp_path):
 def test_decompression_bomb_rejected(tmp_path):
     """A stream whose frames decode to vastly more PCM than STREAMINFO
     declares must fail with rc=-7 (bounded growth) instead of allocating
-    without limit (ADVICE round 1, medium severity)."""
+    without limit."""
     import struct
 
     base = str(tmp_path / "base.flac")

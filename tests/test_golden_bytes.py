@@ -1,7 +1,7 @@
 """Independent byte-level anchors for the PNG persistence layouts.
 
 Round-1 parity rested on round-tripping the repo's own writer+reader pair —
-a shared byte-layout bug would be invisible (VERDICT.md "What's missing" #1/2).
+a shared byte-layout bug would be invisible.
 These tests break that circularity three ways:
 
 1. Golden artifact: /root/reference/glados-1609757458000_.png is the one file
@@ -289,7 +289,7 @@ def test_phase_hdr_reader_bytes(tmp_path):
 def test_towav_end_to_end_on_authentic_go_artifact(tmp_path):
     """Pin the WHOLE PNG -> mel -> Griffin-Lim -> WAV chain on real Go
     encoder output (README.md:5's glados-1609757458000_.png, 183x80), not
-    just the container decode (VERDICT r2 item 6). Checked-in expectations
+    just the container decode. Checked-in expectations
     at seed 0: exact output length resolut + (F-1)*hop = 237056, RMS/peak
     bands wide enough for backend float noise but tight enough to catch any
     chain regression (measured 2026-08-17: rms 0.02909, peak 0.1081)."""
@@ -319,7 +319,7 @@ def test_towav_end_to_end_on_authentic_go_artifact(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Hand-constructed Go-layout PHASE fixtures (VERDICT r3 item 5)
+# Hand-constructed Go-layout PHASE fixtures
 # ---------------------------------------------------------------------------
 # The mel reader is pinned by the authentic Go artifact above; the reference
 # repo ships no Go-binary PHASE PNG, so tests/fixtures/ carries artifacts

@@ -60,7 +60,7 @@ def test_longform_mel_decode_seed_semantics(mesh):
     """Per-shard GL init (noise drawn inside shard_map, fold_in of the mesh
     axis indices) must stay deterministic per seed and vary across seeds —
     and never materialize a [B, F_pad*hop] staging tensor outside the mesh
-    (VERDICT r2 item 3)."""
+   ."""
     cfg = MelConfig(num_mels=24, griffin_lim_iterations=2, **CFG)
     lf = LongFormMel(cfg, mesh)
     x = np.random.default_rng(5).standard_normal((2, 4000)).astype(np.float32)
@@ -275,7 +275,7 @@ def test_call_longform_wrong_arity():
 
 
 # ---------------------------------------------------------------------------
-# File-level API (VERDICT r4 #3): hour-scale users get the same file surface
+# File-level API: hour-scale users get the same file surface
 # as the single-chip pipelines — parity on the same audio.
 # ---------------------------------------------------------------------------
 

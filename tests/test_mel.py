@@ -171,8 +171,8 @@ def test_dumpbuffer_image_parity():
 
 
 def test_pipeline_encode_auto_chunk_matches_flat_kernel():
-    """Mel.encode auto-chunks past 3072 frames (ops/stft.auto_frame_chunk);
-    result must match the flat kernel on the same padded signal."""
+    """Mel.encode past 3072 frames (where an older policy chunked the
+    frames) must match the flat ops kernel on the same padded signal."""
     import jax.numpy as jnp
     from gomel_tpu.core.config import MelConfig
     from gomel_tpu.core.framing import pad_length
@@ -185,7 +185,7 @@ def test_pipeline_encode_auto_chunk_matches_flat_kernel():
     x = np.random.default_rng(31).standard_normal(L).astype(np.float32)
     m = Mel(cfg)
     got = np.asarray(m.encode(x))
-    assert got.shape[0] >= 3072  # the chunked path actually engaged
+    assert got.shape[0] >= 3072  # a long-form frame count
     w = jnp.asarray(mel_weights(cfg.n_bins, cfg.num_mels, cfg.mel_fmin,
                                 cfg.mel_fmax), jnp.float32)
     want = np.asarray(mel_encode(jnp.asarray(x), cfg.num_mels, cfg.resolut,
@@ -209,7 +209,7 @@ def test_encode_rejects_batched_input():
 
 def test_mel_tail_tracer_and_constant_forms_agree():
     """_mel_from_mags has two forms: the extended-weight single matmul for
-    constant weights (adopted, benchmarks/exp_mel_tail.py) and the
+    constant weights and the
     stack+einsum fallback when the weights are a tracer (runtime argument).
     Both must compute the same mel tail (reduction-order tolerance)."""
     from gomel_tpu.ops.mel_ops import _mel_from_mags
@@ -223,15 +223,3 @@ def test_mel_tail_tracer_and_constant_forms_agree():
     tracer_form = jax.jit(_mel_from_mags)(mags, jnp.asarray(w))  # fallback
     np.testing.assert_allclose(const_form, tracer_form,
                                rtol=1e-12, atol=1e-12)
-
-
-def test_mxu_fft_split_override_active_at_4096():
-    """The measured 32x128 override (RESULTS.md CT factor-split sweep) must
-    actually be what _split returns at the flagship N; other sizes keep the
-    most-square heuristic. Parity of every split is pinned by
-    test_mxu_fft.py."""
-    from gomel_tpu.ops.mxu_fft import _split
-
-    assert _split(4096) == (32, 128)
-    n1, n2 = _split(2048)  # un-overridden: most-square legal factorization
-    assert n1 * n2 == 2048 and n1 <= 128 and n2 <= 128 and {n1, n2} == {32, 64}

@@ -2,8 +2,7 @@
 
 ``jax.distributed.initialize`` cannot run in a single-process test
 environment, so the kwarg/env fallback assembly is exercised through a
-monkeypatched initialize (VERDICT round 1, weak #7: previously the only
-untested module). The degenerate single-host queries run for real.
+monkeypatched initialize. The degenerate single-host queries run for real.
 """
 import os
 
@@ -27,9 +26,8 @@ def test_initialize_multihost_kwarg_assembly(monkeypatch):
 
 
 def test_initialize_multihost_env_fallback(monkeypatch):
-    """Omitted arguments are NOT passed, so jax.distributed discovers the
-    topology from the environment (TPU pod metadata) — the documented
-    single-host degenerate invocation (docs/MULTIHOST.md)."""
+    """Omitted arguments are NOT passed, so jax.distributed can discover
+    them under a cluster manager it knows (docs/MULTIHOST.md)."""
     captured = {}
     monkeypatch.setattr(jax.distributed, "initialize",
                         lambda **kw: captured.update(kw))

@@ -29,7 +29,7 @@ def test_two_process_bringup_and_parity():
     assert "frame-axis iSTFT across 2 processes" in out, out
     assert "data-axis Griffin-Lim across 2 processes" in out, out
     # high-level user-facing APIs (not the sharded_* builders) across the
-    # process boundary — VERDICT r2 item 1
+    # process boundary
     for marker in ("LongFormPhase.encode across 2 processes",
                    "LongFormPhase.decode across 2 processes",
                    "LongFormMel.encode across 2 processes",
@@ -40,7 +40,7 @@ def test_two_process_bringup_and_parity():
 
 def test_four_process_2x2():
     """Four-process bring-up with a 2x2 ``(data, frame)`` mesh where BOTH
-    axes cross process boundaries (VERDICT r3 item 7): full parity suite at
+    axes cross process boundaries: full parity suite at
     4 processes plus process-GROUP local ingest (shard_files_for_group /
     data_group_for_process — two processes co-own each data block)."""
     env = dict(os.environ)
@@ -63,7 +63,7 @@ def test_four_process_2x2():
 
 
 def test_kill_drill_elastic_recovery():
-    """Real elastic-recovery drill (VERDICT r3 item 1): SIGKILL one worker of
+    """Real elastic-recovery drill: SIGKILL one worker of
     a live 2-process jax.distributed mesh mid-decode_resumable, then bring up
     two FRESH processes on a new coordinator, reassemble the carry from the
     per-process sharded checkpoints (load_gl_checkpoint_sharded global-min
@@ -85,13 +85,11 @@ def test_kill_drill_elastic_recovery():
 
 def test_cross_process_overhead():
     """Fixed-total-work sharding overhead across a real 2-process bring-up
-    (VERDICT r2 item 4). CI-noise-tolerant: on the 4-core host the sharded
-    run is actually FASTER (measured -40%/-57%, benchmarks/RESULTS.md); the
-    guard only requires cross-process overhead to stay below +50%. The
-    measurement oversubscribes the 4-core host (2 workers x 4 CPU devices),
-    so an unrelated co-running process can blow the wall-clock ratio past
-    the bound (observed +66% with a TPU-bringup process running alongside);
-    retry up to 3 attempts before declaring a real regression."""
+    (CPU, gloo). CI-noise-tolerant: the guard only requires cross-process
+    overhead to stay below +50%. The measurement oversubscribes a small
+    host (2 workers x 4 CPU devices), so an unrelated co-running process
+    can blow the wall-clock ratio past the bound; retry up to 3 attempts
+    before declaring a real regression."""
     import json
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)

@@ -79,7 +79,7 @@ def test_volume_boost_scales_output():
 
 
 def test_float32_close_to_float64():
-    """The TPU dtype (f32) stays within quantization-irrelevant error of the
+    """The device dtype (f32) stays within quantization-irrelevant error of the
     f64 reference (SURVEY.md §7 hard parts)."""
     audio = make_audio(30000)
     p64 = Phase(sample_rate=48000, dtype=jnp.float64)

@@ -4,9 +4,9 @@ True pod scaling efficiency cannot be measured here (the 8 virtual CPU
 devices time-slice the same 4 host cores — weak scaling measures core
 contention, not communication). What IS measurable and meaningful is the
 sharding OVERHEAD at fixed total work: T_sharded / T_unsharded - 1 contains
-the halo exchanges, collectives, and padding skew that a real pod would pay.
-docs/SCALING.md combines this with the analytic ICI model; measured numbers
-live in benchmarks/RESULTS.md (benchmarks/scaling.py --mode overhead).
+the halo exchanges, collectives, and padding skew that a multi-card run
+would pay. docs/SCALING.md combines this with the analytic NVLink model
+(benchmarks/scaling.py --mode overhead measures it).
 
 This test pins the overhead to a generous CI-safe bound: a pathological
 regression (e.g. a full-signal all-gather sneaking into the per-iteration

@@ -24,7 +24,7 @@ def _audio(batch, n, seed=0):
 
 def test_mel_encoder_artifact_matches_live_path(tmp_path):
     exp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
-                                     batch=None, fft_backend="xla",
+                                     batch=None,
                                      platforms=("cpu",))
     path = str(tmp_path / "enc.jaxexp")
     serving.save_exported(exp, path)
@@ -44,20 +44,19 @@ def test_mel_encoder_artifact_matches_live_path(tmp_path):
         got = np.asarray(art.call(jnp.asarray(x)))
         for i in range(batch):
             ref = mel_encode(jnp.asarray(x[i]), CFG.num_mels, CFG.resolut,
-                             CFG.window, fwd, win, fft_backend="xla")
+                             CFG.window, fwd, win)
             np.testing.assert_allclose(got[i], np.asarray(ref), atol=1e-6)
 
 
 def test_mel_decoder_artifact_matches_live_griffin_lim(tmp_path):
     eexp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
-                                      batch=2, fft_backend="xla",
+                                      batch=2,
                                       platforms=("cpu",))
     n = eexp.in_avals[0].shape[1]
     logmel = eexp.call(jnp.asarray(_audio(2, n)))
     F = logmel.shape[1]
 
-    dexp = serving.export_mel_decoder(CFG, n_frames=F, batch=None,
-                                      fft_backend="xla", platforms=("cpu",))
+    dexp = serving.export_mel_decoder(CFG, n_frames=F, batch=None, platforms=("cpu",))
     path = str(tmp_path / "dec.jaxexp")
     serving.save_exported(dexp, path)
     art = serving.load_exported(path)
@@ -72,16 +71,14 @@ def test_mel_decoder_artifact_matches_live_griffin_lim(tmp_path):
                                           CFG.mel_fmin, CFG.mel_fmax),
                       jnp.float32)
     ref = mel_decode(logmel[1], CFG.resolut, CFG.window, inv,
-                     CFG.griffin_lim_iterations, jax.random.PRNGKey(8),
-                     fft_backend="xla")
+                     CFG.griffin_lim_iterations, jax.random.PRNGKey(8))
     np.testing.assert_allclose(wav[1], np.asarray(ref), atol=1e-5)
 
 
 def test_phase_artifact_roundtrip_reconstructs_band_limited_audio(tmp_path):
     # num_freqs=100 keeps bins up to 100/128 of Nyquist; a 440 Hz tone at
     # sr=8000 lives well inside the retained band -> near-exact inversion
-    eexp = serving.export_phase_encoder(PCFG, seconds=0.1, batch=2,
-                                        fft_backend="xla", platforms=("cpu",))
+    eexp = serving.export_phase_encoder(PCFG, seconds=0.1, batch=2, platforms=("cpu",))
     n = eexp.in_avals[0].shape[1]
     t = np.arange(n) / PCFG.sample_rate
     x = np.stack([0.5 * np.sin(2 * np.pi * 440 * t),
@@ -106,7 +103,7 @@ def test_phase_encoder_cli_preset_requires_explicit_sample_rate():
     with pytest.raises(ValueError, match="sample_rate must be set"):
         serving.export_phase_encoder(cfg, seconds=0.1, platforms=("cpu",))
     exp = serving.export_phase_encoder(cfg, seconds=0.1, sample_rate=8000,
-                                       batch=1, fft_backend="xla",
+                                       batch=1,
                                        platforms=("cpu",))
     assert exp.in_avals[0].shape[1] >= int(0.1 * 8000)
 
@@ -127,7 +124,7 @@ def test_export_cli_builds_runnable_artifact(tmp_path):
 
 def test_artifact_composes_inside_larger_jit_program():
     exp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
-                                     batch=None, fft_backend="xla",
+                                     batch=None,
                                      platforms=("cpu",))
     n = exp.in_avals[0].shape[1]
     x = jnp.asarray(_audio(2, n))
@@ -147,14 +144,14 @@ def test_load_rejects_foreign_file(tmp_path):
 
 def test_pinned_batch_rejects_other_batch_size():
     exp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
-                                     batch=2, fft_backend="xla",
+                                     batch=2,
                                      platforms=("cpu",))
     n = exp.in_avals[0].shape[1]
     with pytest.raises(Exception):
         exp.call(jnp.asarray(_audio(3, n)))
 
 
-# -- sharded long-form exports (VERDICT r2 item 5) ---------------------------
+# -- sharded long-form exports ---------------------------
 
 def _longform_mesh():
     from gomel_tpu.parallel.mesh import make_mesh
@@ -252,7 +249,7 @@ def test_call_longform_rejects_wrong_mesh_size():
 def test_v1_artifact_still_loads(tmp_path):
     # round-2 artifacts (magic GMTPUEXP1, no JSON header) must keep loading
     exp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
-                                     batch=2, fft_backend="xla",
+                                     batch=2,
                                      platforms=("cpu",))
     p = str(tmp_path / "v1.jaxexp")
     with open(p, "wb") as f:
@@ -278,8 +275,8 @@ def test_artifact_meta_via_cli(tmp_path):
 
 
 def test_longform_export_with_chunked_analysis(tmp_path):
-    """The auto-chunked (lax.map + dynamic_slice inside shard_map) encode
-    must still export and execute through jax.export."""
+    """A long-form encode (>=3072 frames per shard, where an older policy
+    chunked the frames) must export and execute through jax.export."""
     from gomel_tpu.parallel import sharded as sh
     mesh = _longform_mesh()
     cfg = MelConfig(num_mels=8, resolut=64, window=16)
@@ -287,16 +284,13 @@ def test_longform_export_with_chunked_analysis(tmp_path):
     exp = serving.export_longform_mel_encoder(
         cfg, mesh, n_frames=n_frames, batch=2, platforms=("cpu",))
     plan = serving.longform_plan(cfg, mesh, n_frames)
-    assert plan.frames_per_shard >= 3072  # the chunked path was exported
+    assert plan.frames_per_shard >= 3072
     x = _audio(2, plan.sharded_signal_len, seed=5)
     got = serving.call_longform(serving.load_exported(
         _save_load_path(tmp_path, exp)), mesh, x)
     from gomel_tpu.core.filterbank import mel_weights
     w = mel_weights(cfg.n_bins, cfg.num_mels, cfg.mel_fmin, cfg.mel_fmax)
-    # compare against the SAME baked backend (the builder pins "mxu";
-    # the live default "auto" resolves to the XLA FFT on this CPU host)
-    want = sh.sharded_mel_encode_fn(mesh, plan, cfg.num_mels, w,
-                                    fft_backend="mxu")(jnp.asarray(x))
+    want = sh.sharded_mel_encode_fn(mesh, plan, cfg.num_mels, w)(jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=1e-5, rtol=1e-5)
 
@@ -308,12 +302,9 @@ def _save_load_path(tmp_path, exp):
 
 
 def test_phase_roundtrip_artifact_matches_two_stage(tmp_path):
-    """The fused round-trip artifact (adopted r5: +12% over two dispatches
-    on chip, benchmarks/exp_fused_roundtrip.py) computes exactly the
-    encoder->decoder composition."""
+    """The fused round-trip artifact computes exactly the encoder->decoder
+    composition."""
     eexp = serving.export_phase_roundtrip(PCFG, seconds=0.1, batch=2,
-                                          encode_fft_backend="xla",
-                                          decode_fft_backend="xla",
                                           platforms=("cpu",))
     p = str(tmp_path / "rt.jaxexp")
     serving.save_exported(eexp, p)
@@ -322,7 +313,6 @@ def test_phase_roundtrip_artifact_matches_two_stage(tmp_path):
     x = _audio(2, n, seed=5)
     got = np.asarray(art.call(jnp.asarray(x)))
     enc = serving.export_phase_encoder(PCFG, seconds=0.1, batch=2,
-                                       fft_backend="xla",
                                        platforms=("cpu",))
     spec = enc.call(jnp.asarray(x))
     dec = serving.export_phase_decoder(PCFG, n_frames=spec.shape[1],
@@ -336,7 +326,7 @@ def test_quantized_artifacts_match_live_paths(tmp_path):
     out) compute exactly what the live device-quantize paths compute."""
     from gomel_tpu.pipelines.phase import Phase as LivePhase
     eexp = serving.export_phase_encoder_quantized(
-        PCFG, seconds=0.1, batch=2, fft_backend="xla", platforms=("cpu",))
+        PCFG, seconds=0.1, batch=2, platforms=("cpu",))
     p = str(tmp_path / "encq.jaxexp")
     serving.save_exported(eexp, p)
     art = serving.load_exported(p)
@@ -352,7 +342,7 @@ def test_quantized_artifacts_match_live_paths(tmp_path):
     win = jnp.asarray(hann_window(PCFG.resolut), jnp.float32)
     for i in range(2):
         spec = phase_encode(jnp.asarray(x[i]), PCFG.num_freqs, PCFG.resolut,
-                            PCFG.window, win, fft_backend="xla")
+                            PCFG.window, win)
         w_img, w_mx, w_mn = quantize_planes(spec, 255, 0)
         np.testing.assert_array_equal(np.asarray(planes)[i],
                                       np.asarray(w_img))
@@ -376,7 +366,7 @@ def test_quantized_artifacts_match_live_paths(tmp_path):
 
 def test_quantized_mel_artifacts_run(tmp_path):
     eexp = serving.export_mel_encoder_quantized(
-        CFG, seconds=0.05, sample_rate=8000, batch=2, fft_backend="xla",
+        CFG, seconds=0.05, sample_rate=8000, batch=2,
         platforms=("cpu",))
     n = eexp.in_avals[0].shape[1]
     x = _audio(2, n, seed=8)
@@ -391,3 +381,75 @@ def test_quantized_mel_artifacts_run(tmp_path):
     assert np.asarray(pcm).dtype == np.int16
     assert np.asarray(finite).all()
     assert np.abs(np.asarray(pcm)).max() > 0
+
+
+def test_default_platforms_lower_for_cuda_and_cpu(tmp_path):
+    """Builders lower for CUDA and the CPU by default; the artifact runs
+    here on the CPU and matches the live encode."""
+    from gomel_tpu.core.filterbank import mel_weights
+    from gomel_tpu.ops.mel_ops import mel_encode_batch
+    from gomel_tpu.ops.stft import hann_window
+    assert serving.DEFAULT_PLATFORMS == ("cuda", "cpu")
+    exp = serving.export_mel_encoder(CFG, seconds=0.05, sample_rate=8000,
+                                     batch=2)
+    assert tuple(exp.platforms) == ("cuda", "cpu")
+    p = str(tmp_path / "enc.jaxexp")
+    serving.save_exported(exp, p, meta=serving.artifact_meta(exp, CFG))
+    assert serving.read_artifact_meta(p)["platforms"] == ["cuda", "cpu"]
+    x = _audio(2, exp.in_avals[0].shape[1], seed=9)
+    fwd = jnp.asarray(mel_weights(CFG.n_bins, CFG.num_mels, CFG.mel_fmin,
+                                  CFG.mel_fmax))
+    win = jnp.asarray(hann_window(CFG.resolut))
+    want = mel_encode_batch(jnp.asarray(x), CFG.num_mels, CFG.resolut,
+                            CFG.window, fwd, win)
+    np.testing.assert_allclose(
+        np.asarray(serving.load_exported(p).call(jnp.asarray(x))),
+        np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_export_cli_default_platforms(tmp_path):
+    from gomel_tpu.cli import tools
+    out = str(tmp_path / "rt.jaxexp")
+    assert tools.main(["export", "phase-rt", out, "--seconds", "0.2",
+                       "--batch", "2"]) == 0
+    assert serving.read_artifact_meta(out)["platforms"] == ["cuda", "cpu"]
+
+
+def test_missing_flatbuffers_falls_back_to_vendored(monkeypatch):
+    import os
+    import sys
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setitem(sys.modules, "flatbuffers", None)  # import fails
+    serving._require_flatbuffers()
+    vendor = os.path.join(os.path.dirname(serving.__file__), "_vendor")
+    assert sys.path[-1] == vendor
+
+
+def test_vendored_flatbuffers_round_trips_an_artifact(tmp_path):
+    """jax.export (de)serialization with the vendored runtime, in a process
+    where it is the flatbuffers package found first."""
+    import os
+    import subprocess
+    import sys
+    vendor = os.path.join(os.path.dirname(serving.__file__), "_vendor")
+    code = f"""
+import sys
+sys.path.insert(0, {vendor!r})
+import flatbuffers
+assert "_vendor" in flatbuffers.__file__, flatbuffers.__file__
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+from gomel_tpu import PhaseConfig, serving
+cfg = PhaseConfig(sample_rate=8000, resolut=256, window=64, num_freqs=100)
+exp = serving.export_phase_roundtrip(cfg, seconds=0.1, batch=1)
+serving.save_exported(exp, {str(tmp_path / "rt.jaxexp")!r})
+art = serving.load_exported({str(tmp_path / "rt.jaxexp")!r})
+x = np.zeros((1, exp.in_avals[0].shape[1]), np.float32)
+assert np.isfinite(np.asarray(art.call(x))).all()
+print("VENDORED_OK")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=repo)
+    assert "VENDORED_OK" in proc.stdout, proc.stdout + proc.stderr

@@ -188,53 +188,19 @@ def test_sharded_griffin_lim_64_iterations(mesh):
     assert np.abs(g - np.asarray(want)).max() / denom < 0.02
 
 
-def test_sharded_encode_frame_chunked_matches_unchunked(mesh):
-    """The frame_chunk path inside the shard_map body (hour-scale encode)
-    must match the flat per-shard kernel."""
-    L = FRAME_LEN + 41 * HOP
-    x = _sig(L)
-    plan = _plan_for(L)
-    w = mel_weights(FRAME_LEN // 2, 24, 0.0, 8000.0)
-    xp = sh.pad_signal_for_plan(jnp.asarray(x), plan)
-    base = sh.sharded_mel_encode_fn(mesh, plan, 24, w, frame_chunk=None)(xp)
-    for fc in (4, plan.frames_per_shard, 64):
-        got = sh.sharded_mel_encode_fn(mesh, plan, 24, w, frame_chunk=fc)(xp)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                                   atol=1e-5, rtol=1e-5)
-    pbase = sh.sharded_phase_encode_fn(mesh, plan, 96, frame_chunk=None)(xp)
-    pgot = sh.sharded_phase_encode_fn(mesh, plan, 96, frame_chunk=4)(xp)
-    np.testing.assert_allclose(np.asarray(pgot), np.asarray(pbase),
-                               atol=1e-5, rtol=1e-5)
-
-
 def test_sharded_encode_auto_chunk_kicks_in_at_scale(mesh):
-    """At >=3072 frames per shard the auto policy chunks (ops/stft.py);
-    result must match the explicitly-unchunked builder."""
+    """At >=3072 frames per shard (where an older policy chunked the
+    frames) the sharded encode must match the unsharded kernel."""
+    from gomel_tpu.ops.mel_ops import mel_encode
     fl, hop = 64, 16
     f = 4 * 3100  # 3100 frames/shard on the 4-shard frame axis
     plan = sh.plan_frame_sharding(f, fl, hop, 4)
     assert plan.frames_per_shard >= 3072
-    from gomel_tpu.ops.stft import auto_frame_chunk
-    assert auto_frame_chunk(plan.frames_per_shard) == 1024
     x = _sig(plan.out_len, b=2, seed=21)
     xp = sh.pad_signal_for_plan(jnp.asarray(x), plan)
     w = mel_weights(fl // 2, 8, 0.0, 4000.0)
-    auto = sh.sharded_mel_encode_fn(mesh, plan, 8, w)(xp)          # chunked
-    flat = sh.sharded_mel_encode_fn(mesh, plan, 8, w,
-                                    frame_chunk=None)(xp)
-    np.testing.assert_allclose(np.asarray(auto), np.asarray(flat),
-                               atol=1e-5, rtol=1e-5)
-
-
-def test_sharded_phase_decode_frame_chunked_matches_unchunked(mesh):
-    L = FRAME_LEN + 41 * HOP
-    NUM_FREQS = 96
-    x = _sig(L, seed=6)
-    plan = _plan_for(L)
-    xp = sh.pad_signal_for_plan(jnp.asarray(x), plan)
-    enc = sh.sharded_phase_encode_fn(mesh, plan, NUM_FREQS)(xp)
-    base = sh.sharded_phase_decode_fn(mesh, plan, frame_chunk=None)(enc)
-    for fc in (4, plan.frames_per_shard, 64):
-        got = sh.sharded_phase_decode_fn(mesh, plan, frame_chunk=fc)(enc)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                                   atol=1e-4, rtol=1e-4)
+    got = np.asarray(sh.sharded_mel_encode_fn(mesh, plan, 8, w)(xp))
+    for b in range(2):
+        want = np.asarray(mel_encode(jnp.asarray(x[b]), 8, fl, hop,
+                                     jnp.asarray(w)))
+        np.testing.assert_allclose(got[b, :f], want, atol=1e-5, rtol=1e-5)

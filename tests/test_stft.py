@@ -92,74 +92,3 @@ def test_istft_direct_matches_scalar_oracle():
 
     got = np.asarray(istft_direct(jnp.asarray(half), hop, jnp.asarray(w)))
     np.testing.assert_allclose(got, expect, rtol=1e-10, atol=1e-12)
-
-
-def test_map_frame_chunks_matches_flat():
-    """Chunked analysis (lax.map over frame chunks) must equal the flat
-    kernel to float ulps on the real frames (shape-dependent XLA codegen
-    reorders reductions at the 1e-6 relative level), for chunk sizes that
-    divide, exceed, and straddle the frame count."""
-    import jax.numpy as jnp
-    from gomel_tpu.core.filterbank import mel_weights
-    from gomel_tpu.ops.mel_ops import mel_encode
-    from gomel_tpu.ops.phase_ops import phase_encode
-
-    fl, hop = 256, 64
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal(fl + 53 * hop), jnp.float32)  # F=54
-    w = jnp.asarray(mel_weights(fl // 2, 24, 0.0, 8000.0), jnp.float32)
-    flat = np.asarray(mel_encode(x, 24, fl, hop, w))
-    for chunk in (1, 7, 16, 54, 64, 200):
-        got = np.asarray(mel_encode(x, 24, fl, hop, w, frame_chunk=chunk))
-        np.testing.assert_allclose(got, flat, rtol=2e-5, atol=2e-5), chunk
-    pflat = np.asarray(phase_encode(x, 96, fl, hop))
-    for chunk in (7, 54, 200):
-        got = np.asarray(phase_encode(x, 96, fl, hop, frame_chunk=chunk))
-        np.testing.assert_allclose(got, pflat, rtol=2e-5, atol=2e-5), chunk
-
-
-def test_auto_frame_chunk_policy():
-    from gomel_tpu.ops.stft import auto_frame_chunk
-    assert auto_frame_chunk(1122) is None     # serving shape: no chunking
-    assert auto_frame_chunk(3072) == 1024     # long-form: chunked
-    assert auto_frame_chunk(67497) == 1024
-
-
-def test_chunked_synthesis_matches_flat():
-    """chunked_irfft_overlap_add (scan with tail carry) must match the flat
-    irfft+overlap_add synthesis to float ulps, with and without a frame
-    mask."""
-    import jax
-    import jax.numpy as jnp
-    from gomel_tpu.ops.istft import (chunked_irfft_overlap_add, overlap_add,
-                                     istft_direct_planes)
-    from gomel_tpu.ops.fftbackend import irfft_planes
-    from gomel_tpu.ops.stft import hann_window
-
-    fl, hop, F = 256, 64, 53
-    rng = np.random.default_rng(4)
-    re = jnp.asarray(rng.standard_normal((F, fl // 2 + 1)), jnp.float32)
-    im = jnp.asarray(rng.standard_normal((F, fl // 2 + 1)), jnp.float32)
-    win = jnp.asarray(hann_window(fl), jnp.float32)
-    flat = np.asarray(overlap_add(
-        irfft_planes(re, im, fl, "xla").astype(jnp.float32) * win, hop))
-    for chunk in (7, 16, 53, 200):
-        got = np.asarray(chunked_irfft_overlap_add(re, im, hop, win, chunk))
-        np.testing.assert_allclose(got, flat, rtol=2e-5, atol=2e-5), chunk
-    # masked frames contribute nothing
-    mask = jnp.asarray(rng.random(F) > 0.3)
-    masked_flat = np.asarray(overlap_add(
-        jnp.where(mask[:, None],
-                  irfft_planes(re, im, fl, "xla").astype(jnp.float32) * win,
-                  0.0), hop))
-    got = np.asarray(chunked_irfft_overlap_add(re, im, hop, win, 16,
-                                               frame_mask=mask))
-    np.testing.assert_allclose(got, masked_flat, rtol=2e-5, atol=2e-5)
-    # full direct iSTFT wrapper parity
-    a = np.asarray(istft_direct_planes(re, im, hop, win))
-    b = np.asarray(istft_direct_planes(re, im, hop, win, frame_chunk=16))
-    np.testing.assert_allclose(b, a, rtol=2e-5, atol=2e-5)
-    # too-small chunk is rejected (tail would span two bodies)
-    import pytest
-    with pytest.raises(ValueError, match="too small"):
-        chunked_irfft_overlap_add(re, im, hop, win, 1)

@@ -163,7 +163,7 @@ def test_layout_autodetect_on_normal_content(tmp_path, layout):
 
 def test_fromphase_cli_metadata_layout_override(tmp_path):
     """A silent-content py-layout PNG round-trips via the CLI, both with
-    explicit --metadata-layout py and with auto-detection (VERDICT item 7)."""
+    explicit --metadata-layout py and with auto-detection."""
     from gomel_tpu.cli import tools
 
     nf, frames = 24, 6
